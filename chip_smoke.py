@@ -7,30 +7,44 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name, power limit, torch and CUDA versions; TF32 is switched
    off for matmuls and cuDNN so every fp32 product is full fp32;
-2. build K1 (``src/repro_torch/csrc/spmm_accel.cu``) with nvcc for sm_90a
-   and print ptxas' registers, shared memory and spills;
-3. K1 against its plain PyTorch version on the card, in both partition
-   modes: zero-degree rows, degree == deg_bound, degree > C (split rows),
-   F in {1, 100, 2048}, and merged batched slabs with all-zero padding
-   blocks. Integer-valued graphs must match exactly;
-4. the served slice: the Reddit and Arxiv analogues registered in one
-   GraphServeEngine, the 25m GCN (dims 1024-2048x4-256, 256 classes) served
-   layer by layer for 2 rounds, then 4 threads x 4 concurrent submits at
-   width 256. Every answer is checked against the CSR oracle on the card.
-   The K1 launch count of this phase must equal the number of dispatches;
-5. where one served F=2048 layer spends its device time (torch.profiler),
-   and K1's time per fused dispatch at F=2048 (CUDA events), beside its plain
-   version, ``torch.sparse.mm`` on the same A and X (a yardstick the port
-   never calls) and the memory bound; then the ``{"kernels": [...]}`` line,
-   the card line, and the ``{"ok": true, ...}`` line last.
+2. build K1, K2 and K3 (``src/repro_torch/csrc/spmm_accel.cu``,
+   ``spmm_windowed.cu``, ``spmm_hbm.cu``) with nvcc for sm_90a, all three
+   at once, and print ptxas' registers, shared memory and spills;
+3. each kernel against its plain PyTorch version on the card, in both
+   partition modes: zero-degree rows, degree == deg_bound, degree > C
+   (split rows), F in {1, 100, 2048}, and merged batched slabs with
+   all-zero padding blocks; K2 at 1, 2 and 4 row windows, with window
+   boundaries that cut blocks. Integer-valued graphs must match exactly;
+4. slice A's path: the Reddit and Arxiv analogues registered in one
+   GraphServeEngine (backend ``accel``, K1), the 25m GCN (dims
+   1024-2048x4-256, 256 classes) served layer by layer for 2 rounds, then
+   4 threads x 4 concurrent submits at width 256. Every answer is checked
+   against the CSR oracle on the card. The K1 launch count of this phase
+   must equal the number of dispatches;
+5. where one served F=2048 layer spends its device time (torch.profiler);
+6. slice B1's path, routed serving: GraphServeEngine(backend="auto") serves
+   the same GCN for 2 rounds over the Reddit and Arxiv analogues fused into
+   one dispatch per layer (hbm -> K3), the ``25m`` preset's own graph alone
+   (windowed, 2 windows -> K2) and the ``tiny`` preset's graph alone
+   (resident -> K1). Every answer is checked against the CSR oracle; the
+   K1/K2/K3 launch counts of the phase must equal the engines' routed
+   counts, each at least 1; backend="pallas" on Reddit must raise
+   VmemBudgetError;
+7. kernel times (CUDA events): K1 and K3 per fused Reddit+Arxiv dispatch at
+   F=2048 (K3 also at other gather-stage heights, a diagnostic of what
+   bounds it), K2 on the 25m graph at F=2048, each beside its plain version,
+   ``torch.sparse.mm`` on the same A and X (a yardstick the port never
+   calls) and the memory bound; then the ``{"kernels": [...]}`` line, the
+   card line, and the ``{"ok": true, ...}`` line last.
 
-Tolerance for float results. K1 and its plain version sum a row in two
-levels: at most min(deg, C) rounded products in order inside a block, then
-one partial per block (ceil(deg / C) of them) in any order. The classic
-bound for recursive summation gives, per element,
-``|y - exact| <= k * u * (|A| @ |x|)`` with ``k = min(deg, C) + ceil(deg/C)
-+ 1`` and ``u = 2**-24``. Served answers are held to that bound against an
-fp64 CSR oracle; K1 and its plain version, both fp32, to twice it.
+Tolerance for float results. K1 and K3 sum a row in two levels: at most
+min(deg, C) rounded products in order inside a block, then one partial per
+block (ceil(deg / C) of them) in any order. The classic bound for recursive
+summation gives, per element, ``|y - exact| <= k * u * (|A| @ |x|)`` with
+``k = min(deg, C) + ceil(deg/C) + 1`` and ``u = 2**-24``. K2 adds one level,
+the window partials of each block row, so its k grows by the number of
+windows. Served answers are held to that bound against an fp64 CSR oracle;
+a kernel and its plain version, both fp32, to twice it.
 """
 import json
 import os
@@ -47,6 +61,8 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 rate outside the tensor cores
 DIMS = [1024, 2048, 2048, 2048, 2048, 256]   # examples/train_gcn.py "25m"
 N_CLASSES = 256
 GRAPHS = ("Reddit", "Arxiv")
+# examples/train_gcn.py presets: (name, nodes, edges) of their own graphs
+PRESET_GRAPHS = (("25m", 8_000, 64_000), ("tiny", 2_000, 12_000))
 
 
 def log(msg):
@@ -113,17 +129,30 @@ def phase_card(torch):
 
 
 def phase_build():
-    from repro_torch.kernels.spmm_accel import build_kernel
+    """Build every kernel library at once and print what ptxas reports and
+    each kernel's dynamic shared memory per CTA at C=256, R=64, f_tile=128."""
+    import ctypes
+    from repro_torch.kernels.build import build_all
     t0 = time.perf_counter()
-    path, report = build_kernel()
-    log(f"K1 built in {time.perf_counter() - t0:.1f}s -> "
-        f"{os.path.relpath(path, ROOT)}")
-    for line in report.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
-            log(f"ptxas: {line.strip()}")
-    C, R, f_tile = 256, 64, 128
-    log(f"K1 dynamic shared memory per CTA at C={C}, R={R}, f_tile={f_tile}: "
-        f"(R * f_tile + 3 * C + R) * 4 = {(R * f_tile + 3 * C + R) * 4} bytes")
+    built = build_all()
+    log(f"K1, K2, K3 built in parallel in {time.perf_counter() - t0:.1f}s")
+    C, R, f_tile, rows = 256, 64, 128, 4096 // 128
+    smem_calls = {"spmm_accel": ("spmm_block_slabs_smem_bytes", (C, R, f_tile)),
+                  "spmm_windowed": ("spmm_windowed_smem_bytes",
+                                    (C, R, f_tile, rows)),
+                  "spmm_hbm": ("spmm_hbm_smem_bytes", (C, R, f_tile, rows))}
+    for name, (path, report) in built.items():
+        log(f"{name}: {os.path.relpath(path, ROOT)}")
+        for line in report.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "Compiling")):
+                log(f"ptxas: {line.strip()}")
+        fn_name, args = smem_calls[name]
+        fn = getattr(ctypes.CDLL(str(path)), fn_name)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_longlong
+        log(f"{name}: dynamic shared memory per CTA at C={C}, R={R}, "
+            f"f_tile={f_tile}: {fn(*args)} bytes")
 
 
 def edge_case_graph(C, seed):
@@ -143,38 +172,78 @@ def edge_case_graph(C, seed):
     return CSRGraph(rowptr, colidx, values, n)
 
 
+def kernel_variants(n_x):
+    """(kernel, label, launch, plain version, extra summation levels) for
+    a feature operand of n_x rows: K1, K3, and K2 at 1, 2 and 4 windows."""
+    from repro_torch.kernels.spmm_accel import (
+        spmm_block_slabs, spmm_block_slabs_plain, spmm_block_slabs_windowed,
+        spmm_block_slabs_windowed_plain)
+    from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
+                                              spmm_block_slabs_hbm_plain)
+    out = [("K1", "K1", spmm_block_slabs, spmm_block_slabs_plain, 0),
+           ("K3", "K3", spmm_block_slabs_hbm, spmm_block_slabs_hbm_plain, 0)]
+    for nw in (1, 2, 4):
+        window = -(-n_x // nw)
+        if -(-n_x // window) != nw:
+            raise AssertionError(f"{n_x} rows do not split into {nw} windows")
+
+        def k2(*args, window=window):
+            return spmm_block_slabs_windowed(*args, window_rows=window)
+
+        def k2_plain(*args, window=window):
+            return spmm_block_slabs_windowed_plain(*args, window)
+        out.append(("K2", f"K2 {nw} window(s) of {window}", k2, k2_plain,
+                    nw))
+    return out
+
+
+def windows_cutting_blocks(torch, slabs, window):
+    """Blocks whose live slots fall in more than one row window."""
+    live = slabs["values"] != 0
+    w = slabs["colidx"].long() // window
+    lo = w.masked_fill(~live, 1 << 40).min(dim=1).values
+    hi = w.masked_fill(~live, -1).max(dim=1).values
+    return int((live.any(dim=1) & (lo != hi)).sum())
+
+
 def phase_kernel_cases(torch, dev):
-    """K1 vs its plain version on ``dev``; returns the max abs error of the
-    float cases."""
-    import numpy as np
+    """K1, K2 and K3 against their plain versions on ``dev``; returns each
+    kernel's max abs error over the float cases."""
     from repro_torch.core.graph import gcn_normalize
     from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
     from repro_torch.data.graphs import make_power_law_graph
-    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
-                                                spmm_block_slabs_plain)
+    from repro_torch.kernels.spmm_accel import spmm_block_slabs_plain
     from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    worst = 0.0
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     n_cases = 0
 
     def run(label, slabs, n_rows, x, exact, k=None):
-        nonlocal worst, n_cases
+        nonlocal n_cases
         args = (slabs["colidx"], slabs["values"], slabs["rowloc"],
                 slabs["out_row"])
-        got = spmm_block_slabs(*args, x, n_rows)
-        want = spmm_block_slabs_plain(*args, x, n_rows)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        if exact:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{label}: K1 differs from the plain "
-                                     f"version on an integer-valued graph")
-        else:
-            bound = pair_bound(torch, spmm_block_slabs_plain, args, x,
-                               n_rows, k)
-            worst = max(worst, check_close(label, got, want, bound))
-        n_cases += 1
+        mag = None
+        for kern, name, fn, plain, levels in kernel_variants(x.shape[0]):
+            got = fn(*args, x, n_rows)
+            want = plain(*args, x, n_rows)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if exact:
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{label}: {name} differs from its plain version on "
+                        f"an integer-valued graph")
+            else:
+                if mag is None:
+                    mag = spmm_block_slabs_plain(
+                        args[0], args[1].abs(), args[2], args[3], x.abs(),
+                        n_rows).double()
+                kt = torch.as_tensor(k + levels, dtype=torch.float64,
+                                     device=x.device)[:, None]
+                worst[kern] = max(worst[kern], check_close(
+                    f"{label} {name}", got, want, 2 * U * kt * mag))
+            n_cases += 1
 
     configs = {"tpu": PartitionConfig("tpu", 64, 4),
                "paper": PartitionConfig("paper", 12, 32)}
@@ -188,6 +257,13 @@ def phase_kernel_cases(torch, dev):
         split = int(p_int.partition.is_split.sum())
         if split == 0:
             raise AssertionError(f"{mode}: edge-case graph has no split rows")
+        cut = {nw: (windows_cutting_blocks(torch, p_int.slabs,
+                                           -(-g_int.n_cols // nw)),
+                    windows_cutting_blocks(torch, p_norm.slabs,
+                                           -(-g_norm.n_cols // nw)))
+               for nw in (2, 4)}
+        if any(min(c) == 0 for c in cut.values()):
+            raise AssertionError(f"{mode}: no window boundary cuts a block")
         for F in (1, 100, 2048):
             xi = torch.randint(-4, 5, (g_int.n_cols, F), generator=gen,
                                device=dev).float()
@@ -195,8 +271,10 @@ def phase_kernel_cases(torch, dev):
             xf = torch.randn((g_norm.n_cols, F), generator=gen, device=dev)
             run(f"{mode} normalized F={F}", p_norm.slabs, g_norm.n_rows, xf,
                 False, summation_k(g_norm, cfg.deg_bound, True))
-        log(f"K1 == plain: {mode} mode C={cfg.deg_bound} "
-            f"R={p_int.slabs['R']}, {p_int.num_blocks} blocks ({split} split)")
+        log(f"K1, K2, K3 == plain: {mode} mode C={cfg.deg_bound} "
+            f"R={p_int.slabs['R']}, {p_int.num_blocks} blocks ({split} "
+            f"split); blocks cut by a window boundary (int, normalized): "
+            f"{cut[2]} at 2 windows, {cut[4]} at 4")
 
     # merged slabs of both modes (C and R padded to the batch max) plus a
     # tail of all-zero padding blocks
@@ -210,16 +288,19 @@ def phase_kernel_cases(torch, dev):
     for F in (1, 100, 2048):
         xi = torch.randint(-4, 5, (n_x, F), generator=gen, device=dev).float()
         run(f"merged F={F}", merged, n_out, xi, True)
-    log(f"K1 == plain: merged C={merged['C']} R={merged['R']}, {b_total} "
-        f"live + {merged['colidx'].shape[0] - b_total} padding blocks")
+    log(f"K1, K2, K3 == plain: merged C={merged['C']} R={merged['R']}, "
+        f"{b_total} live + {merged['colidx'].shape[0] - b_total} padding "
+        f"blocks")
     log(f"phase 3 ok: {n_cases} cases, integer cases exact, float max "
-        f"|K1 - plain| = {worst:.3e}")
+        f"|kernel - plain|: " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in worst.items()))
     return worst
 
 
-def csr_check(torch, g, x, y, C, nnz_chunk):
+def csr_check(torch, g, x, y, C, nnz_chunk, extra_levels=0):
     """Hold ``y`` (original row order) against the fp64 CSR oracle for A'.x,
-    within the summation bound of K1's fp32 sums."""
+    within the summation bound of the kernel's fp32 sums (``extra_levels``:
+    K2's window partials)."""
     import numpy as np
     from repro_torch.kernels.ref import csr_spmm_ref
     vals = g.values.astype(np.float64)
@@ -227,8 +308,8 @@ def csr_check(torch, g, x, y, C, nnz_chunk):
                         nnz_chunk=nnz_chunk)
     mag = csr_spmm_ref(g.rowptr, g.colidx, np.abs(vals), x.double().abs(),
                        nnz_chunk=nnz_chunk)
-    k = torch.as_tensor(summation_k(g, C, False), dtype=torch.float64,
-                        device=x.device)[:, None]
+    k = torch.as_tensor(summation_k(g, C, False) + extra_levels,
+                        dtype=torch.float64, device=x.device)[:, None]
     return check_close("served", y, want, U * k * mag)
 
 
@@ -403,13 +484,248 @@ def phase_profile(torch, engine, graphs):
             f"{key[:70]}")
 
 
+def phase_routed(torch, dev, graphs, cache):
+    """Slice B1's main path: GraphServeEngine(backend="auto") routing each
+    fused dispatch to K1, K2 or K3. Returns the small graphs, the engine
+    that served them and the launch count of each kernel."""
+    from repro_torch.core.graph import gcn_normalize
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.kernels.router import VmemBudgetError
+    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+                                                spmm_block_slabs_windowed)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
+    from repro_torch.models.layers import dense_init
+    from repro_torch.serve.graph_engine import GraphRequest, GraphServeEngine
+
+    small = {}
+    for name, n, e in PRESET_GRAPHS:
+        small[name] = gcn_normalize(make_power_law_graph(n, e, seed=0))
+    # the large graphs fuse into one dispatch; each small graph dispatches
+    # alone, so fusing cannot move it to another regime
+    big_engine = GraphServeEngine(device=dev, backend="auto", cache=cache,
+                                  max_graphs_per_batch=2)
+    small_engine = GraphServeEngine(device=dev, backend="auto",
+                                    max_graphs_per_batch=1)
+    for name, g in graphs.items():
+        big_engine.register_graph(name, g)
+    for name, g in small.items():
+        plan = small_engine.register_graph(name, g)
+        log(f"{name} preset graph: {g.n_rows} nodes, {g.nnz} nnz after "
+            f"gcn_normalize, {plan.num_blocks} blocks "
+            f"({int(plan.partition.is_split.sum())} split)")
+    every = dict(graphs, **small)
+    expect = {name: "hbm" for name in graphs}
+    expect.update({"25m": "windowed", "tiny": "resident"})
+
+    gen = torch.Generator().manual_seed(0)
+    dims = DIMS + [N_CLASSES]
+    weights = [dense_init(gen, a, b, torch.float32, device=dev)
+               for a, b in zip(dims[:-1], dims[1:])]
+    dgen = torch.Generator(device=dev).manual_seed(5)
+    feats = {name: torch.randn((g.n_rows, dims[0]), generator=dgen,
+                               device=dev) for name, g in every.items()}
+    nnz_chunk = 1 << 17
+    C = big_engine.config.deg_bound
+    kernels = {"K1": spmm_block_slabs, "K2": spmm_block_slabs_windowed,
+               "K3": spmm_block_slabs_hbm}
+
+    for fn in kernels.values():            # main path starts here
+        fn.launches = 0
+    t_main = time.perf_counter()
+    for rnd in range(2):
+        h = dict(feats)
+        for li, w in enumerate(weights):
+            xw = {name: h[name] @ w for name in every}
+            served = big_engine.serve([GraphRequest(name, xw[name])
+                                       for name in graphs])
+            decisions = {name: big_engine.last_decision for name in graphs}
+            for name in small:
+                served += small_engine.serve([GraphRequest(name, xw[name])])
+                decisions[name] = small_engine.last_decision
+            errs = []
+            for r in served:
+                d = decisions[r.graph_id]
+                if d.backend != expect[r.graph_id]:
+                    raise AssertionError(f"{r.graph_id} routed to "
+                                         f"{d.backend}: {d.describe()}")
+                extra = d.num_windows if d.backend == "windowed" else 0
+                errs.append(csr_check(torch, every[r.graph_id],
+                                      xw[r.graph_id], r.out, C, nnz_chunk,
+                                      extra))
+                h[r.graph_id] = (torch.relu(r.out) if li < len(weights) - 1
+                                 else r.out)
+            if rnd == 0 and li == 0:
+                for name in ("Reddit", "25m", "tiny"):
+                    log(f"route {name}: {decisions[name].describe()}")
+            log(f"routed round {rnd} layer {li} F={w.shape[1]}: max err "
+                f"{max(errs):.2e}; latency "
+                + ", ".join(f"{r.graph_id} {r.latency_s * 1e3:.1f}ms"
+                            for r in served))
+        for name, g in every.items():
+            if not bool(torch.isfinite(h[name]).all()) or \
+                    tuple(h[name].shape) != (g.n_rows, N_CLASSES):
+                raise AssertionError(f"{name}: logits not finite or of shape "
+                                     f"{tuple(h[name].shape)}")
+    t_main = time.perf_counter() - t_main
+    launches = {k: fn.launches for k, fn in kernels.items()}  # path ends
+    big, sm = big_engine.stats(), small_engine.stats()
+    routed = {"K1": big["routed_resident"] + sm["routed_resident"],
+              "K2": big["routed_windowed"] + sm["routed_windowed"],
+              "K3": big["routed_hbm"] + sm["routed_hbm"]}
+    log(f"routed path: launches {launches}, engines' routed counts "
+        f"{routed}; dispatches {big['batches_dispatched']} + "
+        f"{sm['batches_dispatched']}; {t_main:.1f}s including the oracle "
+        f"checks")
+    if launches != routed or min(launches.values()) < 1:
+        raise AssertionError(f"kernel launches {launches} differ from the "
+                             f"routed dispatches {routed}")
+    big_engine.close()
+
+    forced = GraphServeEngine(device=dev, backend="pallas", cache=cache)
+    forced.register_graph("Reddit", graphs["Reddit"])
+    try:
+        forced.serve_one("Reddit", feats["Reddit"][:, :8].contiguous())
+    except VmemBudgetError as e:
+        log(f"backend='pallas' on Reddit raised VmemBudgetError: "
+            f"{str(e)[:120]}...")
+    else:
+        raise AssertionError("backend='pallas' on Reddit did not raise "
+                             "VmemBudgetError")
+    finally:
+        forced.close()
+    return small, small_engine, launches
+
+
+def sparse_csr(torch, graphs, col_offsets, n_out, n_x, dev):
+    """torch.sparse CSR tensor of the block-diagonal A of ``graphs`` (a
+    yardstick only, never on the port's path)."""
+    import numpy as np
+    rowptrs, cols, vals = [np.zeros(1, np.int64)], [], []
+    for g, c0 in zip(graphs, col_offsets):
+        rowptrs.append(g.rowptr[1:] + rowptrs[-1][-1])
+        cols.append(g.colidx + c0)
+        vals.append(g.values)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(np.concatenate(rowptrs)).to(dev),
+        torch.from_numpy(np.concatenate(cols)).to(dev),
+        torch.from_numpy(np.concatenate(vals)).to(dev), size=(n_out, n_x))
+
+
+def bound_of(n_x, n_out, F, slabs, nnz):
+    """The least time the card could take, from bytes and operations."""
+    slab_bytes = sum(slabs[k].numel() * 4
+                     for k in ("colidx", "values", "rowloc", "out_row"))
+    moved = (n_x + n_out) * F * 4 + slab_bytes
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * nnz * F / FP32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", moved, bytes_ms,
+            ops_ms)
+
+
+def phase_timing_k2(torch, small, engine, launches, float_err):
+    """K2 on the 25m preset's graph at F=2048 (2 windows), against its plain
+    version, the library SpMM and the memory bound."""
+    from repro_torch.kernels.router import route_spmm
+    from repro_torch.kernels.spmm_accel import (spmm_block_slabs_plain,
+                                                spmm_block_slabs_windowed,
+                                                spmm_block_slabs_windowed_plain)
+    dev = torch.device("cuda")
+    F = 2048
+    g = small["25m"]
+    plan = engine.plan_for("25m")
+    s = plan.slabs
+    d = route_spmm(g.n_cols, F, int(s["C"]), int(s["R"]))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((g.n_cols, F), generator=gen, device=dev)
+    args = (s["colidx"], s["values"], s["rowloc"], s["out_row"], x,
+            plan.n_rows)
+    k2 = lambda: spmm_block_slabs_windowed(*args)     # noqa: E731
+    plain = lambda: spmm_block_slabs_windowed_plain(  # noqa: E731
+        *args, d.window_rows)
+    got, want = k2(), plain()
+    mag = spmm_block_slabs_plain(args[0], args[1].abs(), args[2], args[3],
+                                 x.abs(), plan.n_rows).double()
+    k = summation_k(g, int(s["C"]), True) + d.num_windows
+    kt = torch.as_tensor(k, dtype=torch.float64, device=dev)[:, None]
+    err = check_close("25m F=2048 K2 vs plain", got, want, 2 * U * kt * mag)
+    del mag, want
+    k2()
+    ms = cuda_ms(k2, 10)
+    plain_ms = cuda_ms(plain, 3)
+    a_csr = sparse_csr(torch, [g], [0], plan.n_rows, g.n_cols, dev)
+    lib = lambda: torch.sparse.mm(a_csr, x)           # noqa: E731
+    lib_err = float((got[plan.inv_perm] - lib()).abs().max())
+    lib()
+    library_ms = cuda_ms(lib, 10)
+    bound_ms, bound_by, moved, bytes_ms, ops_ms = bound_of(
+        g.n_cols, plan.n_rows, F, s, g.nnz)
+    log(f"K2 25m graph F={F}: {plan.num_blocks} blocks, {d.num_windows} "
+        f"windows of {d.window_rows}, n={g.n_rows} nnz={g.nnz}; K2 "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
+        f"{library_ms:.3f} ms (max |K2 - sparse.mm| {lib_err:.2e}); bound "
+        f"{bound_ms:.3f} ms ({moved / 1e9:.4f} GB, {bytes_ms:.3f} ms; "
+        f"{2.0 * g.nnz * F / 1e9:.2f} GFLOP, {ops_ms:.3f} ms); K2 at "
+        f"{bound_ms / ms * 100:.2f}% of the bound")
+    return {"name": "spmm_block_slabs_windowed", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm_windowed.cu",
+            "replaces": "src/repro/kernels/spmm_accel.py:180",
+            "launches": launches["K2"], "max_abs_err": max(err, float_err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def k3_stage_sweep(torch, args, bound, want):
+    """K3 at other gather-stage heights, launched through its C interface
+    (the wrapper fixes 32 rows at f_tile=128). Fewer rows per stage means
+    less shared memory and more CTAs per SM. Returns (rows, smem bytes,
+    CTAs per SM, ms) per height; each result is held to the pair bound."""
+    import ctypes
+    from repro_torch.kernels.build import build_kernel
+    lib = ctypes.CDLL(str(build_kernel("spmm_hbm")[0]))
+    lib.spmm_hbm_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.spmm_hbm_smem_bytes.restype = ctypes.c_longlong
+    launch = lib.spmm_hbm_launch
+    launch.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    colidx, values, rowloc, out_row, x, n_out = args
+    B, C = colidx.shape
+    R = out_row.shape[1]
+    F = x.shape[1]
+    out = []
+    for rows in (4, 8, 16, 32, 64):
+        smem = lib.spmm_hbm_smem_bytes(C, R, 128, rows)
+        y = torch.zeros((n_out, F), device=x.device)
+
+        def run(y=y, rows=rows):
+            err = launch(colidx.data_ptr(), values.data_ptr(),
+                         rowloc.data_ptr(), out_row.data_ptr(), x.data_ptr(),
+                         y.data_ptr(), B, C, R, F, n_out, 128, rows, 1,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K3 launch at {rows} rows failed: {err}")
+        run()
+        check_close(f"K3 at {rows} rows per stage", y, want, bound)
+        run()
+        # every run adds into y: the time is the kernel's, the sum is not
+        t = cuda_ms(run, 10)
+        out.append((rows, smem, 233_472 // (smem + 1024), t))
+        del y
+    return out
+
+
 def phase_timing(torch, graphs, engine, launches, float_err):
-    """K1 at the fused F=2048 dispatch shape against its plain version, the
-    library SpMM and the memory bound. Returns the kernel record."""
+    """K1 and K3 at the fused F=2048 Reddit+Arxiv dispatch shape against
+    their plain version (the same function), the library SpMM and the
+    memory bound. ``launches`` and ``float_err`` are per kernel. Returns
+    the two kernel records."""
     import numpy as np
     from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
                                                 spmm_block_slabs_plain)
     from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
 
     dev = torch.device("cuda")
     F = 2048
@@ -425,17 +741,22 @@ def phase_timing(torch, graphs, engine, launches, float_err):
             merged["out_row"], x, n_out)
 
     k1 = lambda: spmm_block_slabs(*args)               # noqa: E731
+    k3 = lambda: spmm_block_slabs_hbm(*args)           # noqa: E731
     plain = lambda: spmm_block_slabs_plain(*args)      # noqa: E731
-    got = k1()
     want = plain()
     k = np.concatenate([summation_k(g, int(merged["C"]), True)
                         for g in graphs.values()])
     bound = pair_bound(torch, spmm_block_slabs_plain, args[:4], x, n_out, k)
-    err = check_close("fused F=2048 K1 vs plain", got, want, bound)
-    del bound, want
+    got = k1()
+    err = {"K1": check_close("fused F=2048 K1 vs plain", got, want, bound)}
+    got3 = k3()
+    err["K3"] = check_close("fused F=2048 K3 vs plain", got3, want, bound)
+    del got3
     for _ in range(2):
         k1()
-    ms = cuda_ms(k1, 10)
+        k3()
+    ms = {"K1": cuda_ms(k1, 10), "K3": cuda_ms(k3, 10)}
+    ms["K1 again"] = cuda_ms(k1, 10)     # K1 and K3 in turns, one card
     plain_ms = cuda_ms(plain, 2)
     zero_ms = cuda_ms(lambda: torch.zeros((n_out, F), device=dev), 10)
     tiles = []
@@ -443,19 +764,17 @@ def phase_timing(torch, graphs, engine, launches, float_err):
         spmm_block_slabs(*args, f_tile=f_tile)
         tiles.append(f"f_tile={f_tile} "
                      f"{cuda_ms(lambda: spmm_block_slabs(*args, f_tile=f_tile), 5):.3f} ms")
-    log(f"K1 at f_tile=128 (default) {ms:.3f} ms; {', '.join(tiles)}; of "
-        f"which zero-filling the output alone takes {zero_ms:.3f} ms")
+    log(f"K1 at f_tile=128 (default) {ms['K1']:.3f} ms; {', '.join(tiles)}; "
+        f"of which zero-filling the output alone takes {zero_ms:.3f} ms")
 
-    # torch.sparse.mm (cuSPARSE) on the same block-diagonal A and X
-    rowptrs, cols, vals = [np.zeros(1, np.int64)], [], []
-    for g, r0, c0 in zip(graphs.values(), out_off, col_off):
-        rowptrs.append(g.rowptr[1:] + rowptrs[-1][-1])
-        cols.append(g.colidx + c0)
-        vals.append(g.values)
-    a_csr = torch.sparse_csr_tensor(  # yardstick only, never on the path
-        torch.from_numpy(np.concatenate(rowptrs)).to(dev),
-        torch.from_numpy(np.concatenate(cols)).to(dev),
-        torch.from_numpy(np.concatenate(vals)).to(dev), size=(n_out, n_x))
+    stages = k3_stage_sweep(torch, args, bound, want)
+    log("K3 by gather-stage height (rows per ring stage; dynamic shared "
+        "memory per CTA; CTAs per SM by shared memory): " + "; ".join(
+            f"{rows} rows {smem} B {ctas} CTAs {t:.3f} ms"
+            for rows, smem, ctas, t in stages) + " (32 rows is the default)")
+    del bound, want
+
+    a_csr = sparse_csr(torch, graphs.values(), col_off, n_out, n_x, dev)
     lib = lambda: torch.sparse.mm(a_csr, x)            # noqa: E731
     lib_out = lib()
     perm_back = torch.cat([p.inv_perm + int(o) for p, o in
@@ -493,26 +812,30 @@ def phase_timing(torch, graphs, engine, launches, float_err):
         f" ms at the memory rate)")
 
     nnz = sum(g.nnz for g in graphs.values())
-    slab_bytes = sum(merged[k].numel() * 4
-                     for k in ("colidx", "values", "rowloc", "out_row"))
-    moved = (n_x + n_out) * F * 4 + slab_bytes
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * nnz * F / FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by, moved, bytes_ms, ops_ms = bound_of(
+        n_x, n_out, F, merged, nnz)
     log(f"fused dispatch F={F}: {merged['colidx'].shape[0]} blocks "
-        f"({b_live} live), n_x={n_x} n_out={n_out} nnz={nnz}; K1 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, torch.sparse.mm {library_ms:.3f} ms "
+        f"({b_live} live), n_x={n_x} n_out={n_out} nnz={nnz}; K1 "
+        f"{ms['K1']:.3f} ms (again {ms['K1 again']:.3f}), K3 {ms['K3']:.3f} "
+        f"ms, plain {plain_ms:.3f} ms, torch.sparse.mm {library_ms:.3f} ms "
         f"(max |K1 - sparse.mm| {lib_err:.2e}); bound {bound_ms:.3f} ms "
         f"({moved / 1e9:.3f} GB moved, {bytes_ms:.3f} ms; "
         f"{2.0 * nnz * F / 1e9:.1f} GFLOP, {ops_ms:.3f} ms); K1 at "
-        f"{bound_ms / ms * 100:.1f}% of the bound")
-    return {"name": "spmm_block_slabs", "route": "cuda",
-            "source": "src/repro_torch/csrc/spmm_accel.cu",
-            "replaces": "src/repro/kernels/spmm_accel.py:73",
-            "launches": launches, "max_abs_err": max(err, float_err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+        f"{bound_ms / ms['K1'] * 100:.1f}%, K3 at "
+        f"{bound_ms / ms['K3'] * 100:.1f}% of the bound")
+    records = []
+    for kern, name, source, replaces in (
+            ("K1", "spmm_block_slabs", "src/repro_torch/csrc/spmm_accel.cu",
+             "src/repro/kernels/spmm_accel.py:73"),
+            ("K3", "spmm_block_slabs_hbm", "src/repro_torch/csrc/spmm_hbm.cu",
+             "src/repro/kernels/spmm_hbm.py:48")):
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kern],
+            "max_abs_err": max(err[kern], float_err[kern]),
+            "ms": ms[kern], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    return records
 
 
 def main():
@@ -528,12 +851,20 @@ def main():
     phase_build()
     dev = torch.device("cuda")
     float_err = phase_kernel_cases(torch, dev)
-    graphs, engine, launches = phase_serve(torch, dev)
+    graphs, engine, launches_a = phase_serve(torch, dev)
     phase_profile(torch, engine, graphs)
     engine.close()
-    record = phase_timing(torch, graphs, engine, launches, float_err)
+    small, small_engine, launches = phase_routed(torch, dev, graphs,
+                                                 engine.cache)
+    small_engine.close()
+    # K1's record keeps slice A's path count; K2 and K3 report slice B1's
+    launches["K1"] = launches_a
+    k1, k3 = phase_timing(torch, graphs, engine, launches, float_err)
+    k2 = phase_timing_k2(torch, small, small_engine, launches,
+                         float_err["K2"])
     log(f"total {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record]}))
+    records = [k1, k2, k3]
+    print(json.dumps({"kernels": records}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,15 +4,20 @@
 block-level partition -> slab packing) and exposes ``__call__(x)`` computing
 ``A @ x`` in the ORIGINAL row order, with selectable backends:
 
-  backend="accel"    K1, the CUDA block-slab kernel (its plain version for
-                     CPU tensors)
+  backend="accel"    K1, the CUDA block-slab kernel, with no routing
+  backend="auto"     routed per call from the feature-operand shape by the
+                     reference's policy (``kernels/router.py``): resident
+                     (K1) / windowed (K2) / hbm (K3)
+  backend="pallas"   K1 behind the router's resident check (raises
+                     ``VmemBudgetError`` past the resident threshold)
+  backend="windowed" K2, the row-window kernel
+  backend="hbm"      K3, the HBM-gather kernel
   backend="blocked"  PyTorch twin of the kernel (one-hot block reduction)
   backend="segment"  COO + ``index_add_`` (the cuSPARSE-analogue baseline)
   backend="warp"     warp-level fixed-NZ-group emulation (GNNAdvisor analogue)
   backend="dense"    dense matmul oracle (tiny graphs only)
 
-The reference package's TPU router regimes (``auto``, ``pallas``,
-``windowed``, ``hbm``) are not ported yet (ROADMAP queue 2).
+Every kernel takes its plain PyTorch version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -34,7 +39,13 @@ from .plan_cache import (
 )
 from ..kernels import ops as kops
 
-Backend = Literal["accel", "blocked", "segment", "warp", "dense"]
+Backend = Literal["accel", "auto", "pallas", "windowed", "hbm",
+                  "blocked", "segment", "warp", "dense"]
+# slab-dict entry points of the kernel backends
+_KERNEL_OPS = {"accel": kops.spmm_accel, "auto": kops.spmm_auto,
+               "pallas": kops.spmm_pallas,
+               "windowed": kops.spmm_pallas_windowed,
+               "hbm": kops.spmm_pallas_hbm}
 
 
 @dataclasses.dataclass
@@ -60,9 +71,8 @@ class AccelSpMM:
     def __call__(self, x: torch.Tensor,
                  backend: Optional[Backend] = None) -> torch.Tensor:
         be = backend or self.backend
-        if be == "accel":
-            out_sorted = kops.spmm_accel(self.slabs, x.float().contiguous(),
-                                         self.n_rows)
+        if be in _KERNEL_OPS:
+            out_sorted = _KERNEL_OPS[be](self.slabs, x, self.n_rows)
             return out_sorted[self.inv_perm]
         if be == "blocked":
             out_sorted = kops.spmm_blocked(
@@ -82,9 +92,8 @@ class AccelSpMM:
                                      self.n_rows)
         if be == "dense":
             return self.dense @ x.float()
-        raise ValueError(f"unknown backend {be!r} (accel|blocked|segment|"
-                         f"warp|dense; the TPU router regimes are ROADMAP "
-                         f"queue 2)")
+        raise ValueError(f"unknown backend {be!r} (accel|auto|pallas|"
+                         f"windowed|hbm|blocked|segment|warp|dense)")
 
 
 def accel_spmm_from_plan(plan: PartitionPlan,

@@ -1,15 +1,9 @@
-// K1: the Accel-GCN block-slab SpMM on Hopper (sm_90a).
+// K1: the Accel-GCN block-slab SpMM on Hopper (sm_90a), X read straight
+// from device memory.
 //
 // Replaces the Pallas TPU kernel `_spmm_kernel` of
 // src/repro/kernels/spmm_accel.py together with its `scatter_block_rows`
-// epilogue. Inputs are the packed slabs of core/partition.py::pack_slabs:
-//
-//   colidx  int32[B, C]   column of X each slab slot gathers
-//   values  f32[B, C]     edge value per slot (0 on padding slots)
-//   rowloc  int32[B, C]   local output row of each slot, in [0, R)
-//   out_row int32[B, R]   global output row of each local row; n_rows = drop
-//   x       f32[N, F]     dense features, row-major, contiguous
-//   out     f32[n_rows, F] zero-initialised by the caller; accumulated into
+// epilogue. Inputs and the fused epilogue: slab_common.cuh.
 //
 // Design (the paper's GPU design, not the TPU's one-hot matmul):
 //   * one CTA per (block b, feature tile). The tile is the combined warp:
@@ -19,17 +13,13 @@
 //     live (non-zero) slot, and skips the gather entirely for the all-zero
 //     padding blocks that bucketing appends;
 //   * each thread walks the live slots in order, keeps a running sum in a
-//     register while the local row stays the same (pack_slabs emits the
-//     slots of one row contiguously) and flushes it into a shared
-//     [R, f_tile] tile when the row changes. A column has one writer, so
-//     the intra-block reduction needs no atomics;
+//     register while the local row stays the same and flushes it into a
+//     shared [R, f_tile] tile when the row changes. A column has one
+//     writer, so the intra-block reduction needs no atomics;
 //   * the X loads of kUnroll slots are issued before any of them is used,
 //     so every thread keeps several independent gathers in flight;
 //   * fused epilogue: each live local row is added into out[out_row] with
-//     a fp32 atomicAdd (compiled to a fire-and-forget RED). A row with
-//     degree <= C has exactly one writer onto a zero, which is exact; the
-//     blocks of a split row (degree > C) sum across CTAs in no fixed
-//     order, so their low bits vary from run to run.
+//     a fp32 atomicAdd.
 //
 // Bound on an H100: memory. Per call the kernel must read X's referenced
 // rows once (N * F * 4 bytes), write out once (n_rows * F * 4) and read the
@@ -37,8 +27,7 @@
 // column, far below the fp32 rate. Offsets into X and out are 64-bit:
 // a fused dispatch may index more than 2^31 elements.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "slab_common.cuh"
 
 namespace {
 
@@ -64,25 +53,12 @@ __global__ void spmm_block_slabs_kernel(
   const int64_t f = (int64_t)tile * f_tile + t;
   const bool f_ok = f < F;
 
-  if (t == 0) s_live = 0;
-  __syncthreads();
-  int live = 0;
-  for (int c = t; c < C; c += f_tile) {
-    const float v = values[b * C + c];
-    s_col[c] = colidx[b * C + c];
-    s_val[c] = v;
-    s_row[c] = rowloc[b * C + c];
-    if (v != 0.f) live = c + 1;
-  }
-  for (int r = t; r < R; r += f_tile) s_out[r] = out_row[b * R + r];
-  if (live) atomicMax(&s_live, live);
   for (int r = 0; r < R; ++r) acc[r * f_tile + t] = 0.f;
-  __syncthreads();
-  const int n_live = s_live;
+  const int n_live = slab::stage_block(colidx, values, rowloc, out_row, b, C,
+                                       R, s_col, s_val, s_row, s_out, &s_live);
   if (n_live == 0) return;  // all-zero block: it adds nothing anywhere
 
-  int cur = -1;
-  float run = 0.f;
+  slab::RowRun run;
   for (int c0 = 0; c0 < n_live; c0 += kUnroll) {
     float xv[kUnroll];
 #pragma unroll
@@ -95,27 +71,15 @@ __global__ void spmm_block_slabs_kernel(
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int c = c0 + u;
-      if (c < n_live && s_val[c] != 0.f) {
-        const int r = s_row[c];
-        if (r != cur) {
-          if (cur >= 0) acc[cur * f_tile + t] += run;
-          cur = r;
-          run = 0.f;
-        }
-        // round the product before the sum, as the plain version does
-        run = __fadd_rn(run, __fmul_rn(s_val[c], xv[u]));
-      }
+      if (c < n_live && s_val[c] != 0.f)
+        run.add(s_row[c], s_val[c], xv[u], acc, f_tile, t);
     }
   }
-  if (cur >= 0) acc[cur * f_tile + t] += run;
+  run.flush(acc, f_tile, t);
 
   // Each thread reads back only its own column of acc: no barrier needed.
   if (!f_ok) return;
-  for (int r = 0; r < R; ++r) {
-    const int o = s_out[r];
-    if (o == n_rows) continue;  // sentinel: padding row
-    atomicAdd(out + (int64_t)o * F + f, acc[r * f_tile + t]);
-  }
+  slab::add_block_rows(acc, s_out, out, R, f_tile, t, F, f, n_rows);
 }
 
 }  // namespace
@@ -137,12 +101,8 @@ int spmm_block_slabs_launch(const void* colidx, const void* values,
                             void* stream) {
   const int n_ftiles = (int)((F + f_tile - 1) / f_tile);
   const long long smem = spmm_block_slabs_smem_bytes(C, R, f_tile);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        spmm_block_slabs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = slab::allow_smem(spmm_block_slabs_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((long long)B * n_ftiles);
   spmm_block_slabs_kernel<<<grid, f_tile, (size_t)smem,
                             static_cast<cudaStream_t>(stream)>>>(
@@ -151,10 +111,6 @@ int spmm_block_slabs_launch(const void* colidx, const void* values,
       static_cast<const float*>(x), static_cast<float*>(out), C, R,
       (int64_t)F, n_rows, n_ftiles);
   return (int)cudaGetLastError();
-}
-
-const char* spmm_accel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

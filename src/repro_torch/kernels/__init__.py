@@ -1,2 +1,3 @@
-# Hand-written kernels (CUDA sources in ../csrc), their plain PyTorch
-# versions, the slab-dict wrappers (ops.py) and the oracles (ref.py).
+# Hand-written kernels (CUDA sources in ../csrc, built by build.py), their
+# plain PyTorch versions, the routing policy (router.py), the slab-dict
+# wrappers (ops.py) and the oracles (ref.py).

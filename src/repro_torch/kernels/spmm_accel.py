@@ -1,7 +1,7 @@
-"""Accel-GCN block-slab SpMM (K1): the CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Accel-GCN block-slab SpMM, resident (K1) and windowed (K2): the CUDA
+kernels, their wrappers and their plain PyTorch versions.
 
-The kernel (``csrc/spmm_accel.cu``) replaces the Pallas TPU kernel
+K1 (``csrc/spmm_accel.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.spmm_accel._spmm_kernel`` (``src/repro/kernels/spmm_accel.py:73``)
 and its ``scatter_block_rows`` epilogue. It takes the paper's GPU design
 rather than the TPU's: one CTA per (block, feature tile) with the feature
@@ -9,49 +9,50 @@ tile as the combined warp, the intra-block row reduction in shared memory,
 and a fused epilogue that adds each block row into the output with fp32
 atomics, so split rows (degree > C) sum across CTAs.
 
-What bounds it on an H100 is memory: per call it must read the referenced
-X rows once, write the output once and read the slabs once; it does 2 flops
-per slab slot and feature column, far below the card's fp32 rate. Its design
-answers that by coalescing every gathered row (32 lanes on 32 neighbouring
-floats), keeping several gathers in flight per thread, skipping padding
-slots and all-zero padding blocks, and never materialising the ``[B, R, F]``
-block rows that the TPU version scatters in a second pass.
+K2 (``csrc/spmm_windowed.cu``) replaces ``_spmm_kernel_windowed``
+(``src/repro/kernels/spmm_accel.py:180``): the same product with X swept in
+row windows of ``window_rows``. Slots outside window ``w`` add nothing in
+sweep ``w`` and each block row sums its window partials in window order;
+the CTA stages each window through shared memory in sub-tiles.
 
-The TPU kernel's VMEM bounds (the resident-X budget, the pad of F to 128
-lanes and of N to 8 rows) do not apply: the CUDA kernel gathers X rows from
-device memory, masks the ragged feature edge itself, and has no bound on N.
+What bounds both on an H100 is memory: per call they must read the
+referenced X rows once, write the output once and read the slabs once; they
+do 2 flops per slab slot and feature column, far below the card's fp32
+rate. K1 answers that by coalescing every gathered row (32 lanes on 32
+neighbouring floats), keeping several gathers in flight per thread,
+skipping padding slots and all-zero padding blocks, and never
+materialising the ``[B, R, F]`` block rows that the TPU version scatters in
+a second pass. K2 copies whole sub-tiles of the windows its slots touch,
+so it reads far more than that bound by design (see its source note).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` from the repository's
-source at first use, into ``build/kernels/`` at the repository root, and
-loaded with ``ctypes``.
+The TPU kernels' VMEM bounds (the resident-X budget, the pad of F to 128
+lanes and of N to 8 rows) do not apply: the kernels read X from device
+memory, mask the ragged feature edge themselves, and have no bound on N.
+The routing policy that still decides which kernel a dispatch runs lives in
+``router.py``. The libraries are built at first use by ``build.py``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
-from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["DEFAULT_F_TILE", "scatter_block_rows", "spmm_block_slabs",
-           "spmm_block_slabs_plain", "build_kernel"]
+from .build import load_kernel
+from .router import resident_window_rows
+
+__all__ = ["DEFAULT_F_TILE", "MAX_SMEM_PER_CTA", "scatter_block_rows",
+           "spmm_block_slabs", "spmm_block_slabs_plain",
+           "spmm_block_slabs_windowed", "spmm_block_slabs_windowed_plain"]
 
 DEFAULT_F_TILE = 128   # threads per CTA: the feature columns one CTA owns
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmm_accel.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_MAX_SMEM = 232_448    # bytes of shared memory one CTA may use on Hopper
+MAX_SMEM_PER_CTA = 232_448   # bytes of shared memory one CTA may use on Hopper
 _MAX_GRID = 2**31 - 1
-# elements of the [blocks, C, F] gather the plain version materialises at once
+# elements of the [blocks, C, F] gather the plain versions materialise at once
 _PLAIN_CHUNK_ELEMS = 1 << 25
+# floats of one staged X sub-tile (K2) or one gather stage (K3) per CTA
+STAGE_ELEMS = 4096
 
-_build_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 _launch_lock = threading.Lock()
 
 
@@ -94,8 +95,10 @@ def spmm_block_slabs_plain(colidx: torch.Tensor, values: torch.Tensor,
     return out[:n_rows]
 
 
-def _check(colidx, values, rowloc, out_row, x, n_rows: int, f_tile: int,
-           grid_order: str) -> None:
+def check_slabs(colidx, values, rowloc, out_row, x, n_rows: int,
+                f_tile: int, grid_order: str) -> None:
+    """Raise on what the slab kernels do not take: types, shapes, devices,
+    contiguity, f_tile and grid_order."""
     if grid_order not in ("block_major", "ft_major"):
         raise ValueError(
             f"grid_order must be block_major|ft_major, got {grid_order!r}")
@@ -151,7 +154,7 @@ def spmm_block_slabs(
     or ``batch_graph_slabs``: every ``rowloc`` is below R, every ``colidx``
     below N, every ``out_row`` at most ``n_rows``.
     """
-    _check(colidx, values, rowloc, out_row, x, n_rows, f_tile, grid_order)
+    check_slabs(colidx, values, rowloc, out_row, x, n_rows, f_tile, grid_order)
     if x.device.type == "cpu":
         return spmm_block_slabs_plain(colidx, values, rowloc, out_row, x,
                                       n_rows)
@@ -164,6 +167,48 @@ def spmm_block_slabs(
 spmm_block_slabs.launches = 0   # K1 launches since the caller last reset it
 
 
+def check_launch(label: str, smem: int, B: int, F: int,
+                 f_tile: int) -> None:
+    """Raise before a launch the card would refuse: shared memory past the
+    per-CTA limit, or more CTAs than the grid holds."""
+    if smem > MAX_SMEM_PER_CTA:
+        raise ValueError(f"{label} needs {smem} bytes of shared memory per "
+                         f"CTA; the card allows {MAX_SMEM_PER_CTA}")
+    n_ftiles = -(-F // f_tile)
+    if B * n_ftiles > _MAX_GRID:
+        raise ValueError(f"{label}: {B} blocks x {n_ftiles} feature tiles "
+                         f"exceed the grid limit")
+
+
+def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args):
+    """Call the library's launch function ``fn`` on x's current stream,
+    raise if the launch was refused, and count it on ``wrapper``."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed: "
+                           f"{lib.slab_kernel_error_string(err).decode()}")
+    with _launch_lock:
+        wrapper.launches += 1
+
+
+def declare_common(lib: ctypes.CDLL) -> None:
+    lib.slab_kernel_error_string.argtypes = [ctypes.c_int]
+    lib.slab_kernel_error_string.restype = ctypes.c_char_p
+
+
+def _declare_k1(lib: ctypes.CDLL) -> None:
+    declare_common(lib)
+    lib.spmm_block_slabs_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.spmm_block_slabs_smem_bytes.restype = ctypes.c_longlong
+    lib.spmm_block_slabs_launch.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.spmm_block_slabs_launch.restype = ctypes.c_int
+
+
 def _launch(colidx, values, rowloc, out_row, x, n_rows: int,
             f_tile: int) -> torch.Tensor:
     B, C = colidx.shape
@@ -172,84 +217,118 @@ def _launch(colidx, values, rowloc, out_row, x, n_rows: int,
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     if B == 0 or F == 0 or n_rows == 0:
         return out
-    lib = _load()
-    smem = lib.spmm_block_slabs_smem_bytes(C, R, f_tile)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"K1 needs {smem} bytes of shared memory per CTA for C={C}, "
-            f"R={R}, f_tile={f_tile}; the card allows {_MAX_SMEM}")
-    n_ftiles = -(-F // f_tile)
-    if B * n_ftiles > _MAX_GRID:
-        raise ValueError(f"{B} blocks x {n_ftiles} feature tiles exceed "
-                         f"the grid limit")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.spmm_block_slabs_launch(
-            colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
-            out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
-            B, C, R, F, n_rows, f_tile, stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: "
-                           f"{lib.spmm_accel_error_string(err).decode()}")
-    with _launch_lock:
-        spmm_block_slabs.launches += 1
+    lib = load_kernel("spmm_accel", _declare_k1)
+    check_launch("K1", lib.spmm_block_slabs_smem_bytes(C, R, f_tile), B, F,
+                 f_tile)
+    launch_on_stream(
+        "K1", lib, lib.spmm_block_slabs_launch, spmm_block_slabs, x,
+        colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
+        out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
+        B, C, R, F, n_rows, f_tile)
     return out
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: K1 is compiled from "
-                       f"{_SOURCE.name} at first use and needs the CUDA "
-                       "toolkit")
+# ------------------------------------------------------------------ K2
+def spmm_block_slabs_windowed_plain(colidx: torch.Tensor,
+                                    values: torch.Tensor,
+                                    rowloc: torch.Tensor,
+                                    out_row: torch.Tensor, x: torch.Tensor,
+                                    n_rows: int,
+                                    window_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: for each row window ``w`` in order, the
+    slots whose column lies in the window are gathered, scaled and
+    ``index_add_``-ed into the R local rows of each block, and the window
+    partial is added into the block rows; then the block rows are
+    ``index_add_``-ed into the global rows. Chunked over blocks."""
+    B, C = colidx.shape
+    R = out_row.shape[1]
+    N, F = x.shape
+    num_windows = max(1, -(-N // window_rows))
+    out = torch.zeros((n_rows + 1, F), dtype=torch.float32, device=x.device)
+    xf = x.float()
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, C * F))
+    for lo in range(0, B, chunk):
+        hi = min(B, lo + chunk)
+        ci = colidx[lo:hi].long()
+        gathered = xf[ci]                                         # [b, C, F]
+        local = (torch.arange(hi - lo, device=x.device)[:, None] * R
+                 + rowloc[lo:hi].long()).reshape(-1)
+        rows = torch.zeros(((hi - lo) * R, F), dtype=torch.float32,
+                           device=x.device)
+        for w in range(num_windows):
+            in_window = (ci >= w * window_rows) & (ci < (w + 1) * window_rows)
+            scaled = (values[lo:hi].float() * in_window)[:, :, None] * gathered
+            part = torch.zeros_like(rows)
+            part.index_add_(0, local, scaled.reshape(-1, F))
+            rows += part
+        out.index_add_(0, out_row[lo:hi].reshape(-1).long(), rows)
+    return out[:n_rows]
 
 
-def build_kernel() -> Tuple[Path, str]:
-    """Compile K1 for ``sm_90a`` (once per source content) and return the
-    library path and the compiler's ``-Xptxas -v`` report."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.blake2b(src, digest_size=8).hexdigest()
-    lib_path = _BUILD_DIR / f"libspmm_accel-{tag}.so"
-    log_path = lib_path.with_suffix(".log")
-    with _build_lock:
-        if not lib_path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)
-        log = log_path.read_text() if log_path.exists() else ""
-    return lib_path, log
+def spmm_block_slabs_windowed(
+    colidx: torch.Tensor,   # int32[B, C]
+    values: torch.Tensor,   # f32[B, C]
+    rowloc: torch.Tensor,   # int32[B, C]
+    out_row: torch.Tensor,  # int32[B, R]
+    x: torch.Tensor,        # f32[N, F]
+    n_rows: int,
+    *,
+    f_tile: int = DEFAULT_F_TILE,
+    window_rows: int | None = None,
+) -> torch.Tensor:
+    """Row-window SpMM over packed slabs; returns ``[n_rows, F]`` fp32.
+
+    ``window_rows`` (default ``resident_window_rows(f_tile, 4)``, 4096 at
+    ``f_tile=128``) is the semantic window of the reference kernel: slots
+    outside window ``w`` add nothing in sweep ``w`` and each block row sums
+    its window partials in window order. CUDA tensors launch K2 on the
+    current stream; CPU tensors take the plain version. There is no
+    fallback between the two.
+    """
+    check_slabs(colidx, values, rowloc, out_row, x, n_rows, f_tile, "block_major")
+    window = window_rows or resident_window_rows(f_tile, x.element_size())
+    if window < 1:
+        raise ValueError(f"window_rows must be >= 1, got {window_rows}")
+    if x.device.type == "cpu":
+        return spmm_block_slabs_windowed_plain(colidx, values, rowloc,
+                                               out_row, x, n_rows, window)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_block_slabs_windowed runs on cuda or cpu, "
+                         f"got {x.device}")
+    return _launch_windowed(colidx, values, rowloc, out_row, x, n_rows,
+                            f_tile, window)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    path, _ = build_kernel()
-    with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(path))
-            lib.spmm_block_slabs_smem_bytes.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.spmm_block_slabs_smem_bytes.restype = ctypes.c_longlong
-            lib.spmm_block_slabs_launch.argtypes = (
-                [ctypes.c_void_p] * 6
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p])
-            lib.spmm_block_slabs_launch.restype = ctypes.c_int
-            lib.spmm_accel_error_string.argtypes = [ctypes.c_int]
-            lib.spmm_accel_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+spmm_block_slabs_windowed.launches = 0   # K2 launches since the last reset
+
+
+def _declare_k2(lib: ctypes.CDLL) -> None:
+    declare_common(lib)
+    lib.spmm_windowed_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.spmm_windowed_smem_bytes.restype = ctypes.c_longlong
+    lib.spmm_windowed_launch.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_int, ctypes.c_void_p])
+    lib.spmm_windowed_launch.restype = ctypes.c_int
+
+
+def _launch_windowed(colidx, values, rowloc, out_row, x, n_rows: int,
+                     f_tile: int, window: int) -> torch.Tensor:
+    B, C = colidx.shape
+    R = out_row.shape[1]
+    N, F = x.shape
+    out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
+    if B == 0 or F == 0 or n_rows == 0 or N == 0:
+        return out
+    sub_rows = max(1, min(window, STAGE_ELEMS // f_tile))
+    lib = load_kernel("spmm_windowed", _declare_k2)
+    check_launch("K2", lib.spmm_windowed_smem_bytes(C, R, f_tile, sub_rows),
+                 B, F, f_tile)
+    launch_on_stream(
+        "K2", lib, lib.spmm_windowed_launch, spmm_block_slabs_windowed, x,
+        colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
+        out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
+        B, C, R, F, N, n_rows, f_tile, window, sub_rows)
+    return out

@@ -11,7 +11,12 @@ construction:
    ``n_rows_g`` is remapped to the single batch-wide sentinel ``N_out``),
    then concatenate along the block axis;
 3. run the merged ``[B_total, C]`` slabs and the row-concatenated features
-   through one launch of the slab kernel;
+   through one launch of a slab kernel. The concatenated feature matrix is
+   where a batch of graphs that each stay in the resident regime leaves it
+   (N_pad grows with the batch), so ``backend="auto"`` asks
+   ``router.route_spmm`` to pick resident (K1) / windowed (K2) / hbm (K3)
+   from the merged shape, and ``backend="pallas"`` (forced resident) raises
+   ``VmemBudgetError`` past the resident threshold, as the reference does;
 4. slice each graph's rows back out of the batched output.
 
 The merge runs on the slabs' device with ``torch.cat`` and offset
@@ -24,17 +29,27 @@ runs. ``pad_blocks_to`` rounds the merged block count up to a bucket.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .ops import spmm_blocked
-from .spmm_accel import spmm_block_slabs
+from .router import RoutingDecision, route_spmm
+from .spmm_accel import spmm_block_slabs, spmm_block_slabs_windowed
+from .spmm_hbm import spmm_block_slabs_hbm
 
 __all__ = ["batch_graph_slabs", "spmm_batched", "bucket_blocks"]
 
-_BACKENDS = ("accel", "blocked")
+_BACKENDS = ("auto", "pallas", "windowed", "hbm", "accel", "blocked")
+# the routed backends: None routes, a regime name forces it
+_FORCE = {"auto": None, "pallas": "resident", "windowed": "windowed",
+          "hbm": "hbm"}
+_KERNELS = {
+    "resident": spmm_block_slabs,
+    "windowed": spmm_block_slabs_windowed,
+    "hbm": spmm_block_slabs_hbm,
+}
 
 
 def bucket_blocks(b_total: int, min_bucket: int = 8) -> int:
@@ -124,15 +139,24 @@ def spmm_batched(
     *,
     backend: str = "accel",
     pad_blocks_to: Optional[int] = None,
-) -> List[torch.Tensor]:
+    return_decision: bool = False,
+    grid_order: str = "block_major",
+) -> Union[List[torch.Tensor],
+           Tuple[List[torch.Tensor], Optional[RoutingDecision]]]:
     """Fused SpMM over several graphs; returns one ``[n_rows_g, F_g]`` output
     per graph (degree-sorted row order, same as the single-graph kernel).
 
     Feature matrices may differ in width; they are right-padded to the batch
     max ``F`` (padding columns are sliced off on the way out).
 
-    Backends: ``accel`` is K1 (its plain version for CPU tensors);
-    ``blocked`` is the PyTorch twin.
+    Backends: ``auto`` routes the merged dispatch (resident K1 / windowed
+    K2 / hbm K3) on ``n_x = sum(n_cols)`` at fp32; ``pallas`` forces the
+    resident regime and raises ``VmemBudgetError`` past its threshold;
+    ``windowed`` / ``hbm`` force K2 / K3; ``accel`` is K1 with no routing;
+    ``blocked`` is the PyTorch twin. With ``return_decision=True`` the
+    routing record (``None`` for ``accel`` and ``blocked``) comes back
+    alongside the outputs. ``grid_order`` reaches K1 only. Every kernel
+    takes its plain version for CPU tensors.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"batched spmm backend must be "
@@ -153,7 +177,19 @@ def spmm_batched(
 
     args = (merged["colidx"], merged["values"], merged["rowloc"],
             merged["out_row"], x_cat, n_out)
-    out = spmm_block_slabs(*args) if backend == "accel" else spmm_blocked(*args)
+    decision: Optional[RoutingDecision] = None
+    if backend in _FORCE:
+        # n_x = sum of n_cols: the quantity that overflows the resident regime
+        decision = route_spmm(int(x_cat.shape[0]), F, int(merged["C"]),
+                              int(merged["R"]), force=_FORCE[backend])
+        kwargs = ({"grid_order": grid_order}
+                  if decision.backend == "resident" else {})
+        out = _KERNELS[decision.backend](*args, **kwargs)
+    elif backend == "accel":
+        out = spmm_block_slabs(*args, grid_order=grid_order)
+    else:
+        out = spmm_blocked(*args)
 
-    return [out[int(out_off[i]):int(out_off[i + 1]), :f_list[i]]
+    outs = [out[int(out_off[i]):int(out_off[i + 1]), :f_list[i]]
             for i in range(G)]
+    return (outs, decision) if return_decision else outs

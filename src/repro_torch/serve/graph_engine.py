@@ -15,7 +15,8 @@ Serving architecture (scheduler -> flush -> dispatch)::
                                   dispatches of <= max_graphs_per_batch
                                                                |
                                   _dispatch: merge slabs on the device,
-                                  bucket blocks, ONE fused K1 launch
+                                  bucket blocks, route the merged shape,
+                                  ONE fused kernel launch (K1 | K2 | K3)
                                                                |
                                   un-permute rows, split feature columns,
                                   item.complete(out) resolves each Future
@@ -38,9 +39,15 @@ clock; per-dispatch wall time accumulates separately in ``total_serve_s``.
 ``stats()`` merges engine counters, plan-cache counters (``cache_*``) and
 scheduler counters (``sched_*``).
 
-The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
-its default backend there is K1 (``"accel"``). Edge mutation and the
-partition autotuner arrive with slice B (ROADMAP queue 1).
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"``.
+Backends: ``auto`` routes every fused dispatch by the reference's policy
+(``kernels/router.py``) to K1 (resident), K2 (windowed) or K3 (hbm);
+``pallas`` forces K1 and raises ``VmemBudgetError`` past the resident
+threshold; ``windowed`` and ``hbm`` force K2 and K3; ``accel`` (the
+default) is K1 with no routing; ``blocked`` is the PyTorch twin. Each
+dispatch counts under the regime it ran (``routed_*`` in ``stats()``).
+Edge mutation and the partition autotuner arrive with later slices
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ from ..core.plan_cache import (
     DeviceLike, PartitionConfig, PartitionPlan, PlanCache, _config_tag,
     build_partition_plan, graph_content_hash, resolve_device,
 )
+from ..kernels.router import RoutingDecision
 from ..kernels.spmm_batched import bucket_blocks, spmm_batched
 from .scheduler import BatchScheduler, ClassSpec, WorkItem
 
@@ -67,12 +75,11 @@ __all__ = ["GraphRequest", "GraphServeEngine"]
 
 logger = logging.getLogger(__name__)
 
-_BACKENDS = ("accel", "blocked")
-# the reference engine's TPU router regimes, not ported yet
-_UNPORTED_BACKENDS = ("auto", "pallas", "windowed", "hbm")
-# stats key each backend's dispatches count under (K1 is the counterpart of
-# the reference's resident kernel)
-_ROUTED = {"accel": "resident", "blocked": "blocked"}
+# the reference engine's backends plus the port's unrouted K1
+_BACKENDS = ("auto", "pallas", "windowed", "hbm", "blocked", "accel")
+# stats key of the backends that take no routing decision (K1 is the
+# reference's resident kernel)
+_UNROUTED = {"accel": "resident", "blocked": "blocked"}
 
 # per-plan dispatch timing ring: last N wall times per plan key, bounded
 # to the most recently dispatched keys so a graph-churn workload can't
@@ -119,11 +126,6 @@ class GraphServeEngine:
         feature_bucket: bool = True,
         classes: Optional[Sequence[ClassSpec]] = None,
     ):
-        if backend in _UNPORTED_BACKENDS:
-            raise ValueError(
-                f"backend {backend!r} is a TPU router regime that is not "
-                f"ported yet (ROADMAP queue 2); use one of "
-                f"{'|'.join(_BACKENDS)}")
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {'|'.join(_BACKENDS)}")
         self.device = resolve_device(device)
@@ -171,6 +173,7 @@ class GraphServeEngine:
         self.padded_blocks = 0       # blocks actually dispatched (bucketed)
         self.backend_dispatches: Dict[str, int] = {
             "resident": 0, "windowed": 0, "hbm": 0, "blocked": 0}
+        self.last_decision: Optional[RoutingDecision] = None
         # per-plan dispatch wall times: key -> deque of (seconds, exact)
         # where exact=True means the dispatch held ONLY this plan (a fused
         # multi-graph dispatch records its per-plan SHARE, flagged inexact)
@@ -416,25 +419,29 @@ class GraphServeEngine:
         pad_to = None
         if self.block_bucket:
             pad_to = bucket_blocks(b_total, self.block_bucket)
-        outs = spmm_batched(
+        outs, decision = spmm_batched(
             [p.slabs for p in plans], xs, [p.n_rows for p in plans],
-            backend=self.backend, pad_blocks_to=pad_to)
+            backend=self.backend, pad_blocks_to=pad_to, return_decision=True)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0         # this dispatch's wall time
 
+        executed = (decision.backend if decision is not None
+                    else _UNROUTED[self.backend])
         share = dt / len(batch)
         with self._counters_lock:
-            self.backend_dispatches[_ROUTED[self.backend]] += 1
+            self.backend_dispatches[executed] += 1
+            self.last_decision = decision
             self.live_blocks += b_total
             self.padded_blocks += pad_to if pad_to else b_total
             for _, _, plan in batch:
                 self._record_plan_time_locked(plan.key, share,
                                               len(batch) == 1)
         if logger.isEnabledFor(logging.DEBUG):
-            logger.debug("dispatch: graphs=%d blocks=%d->%d backend=%s %.1fms",
-                         len(batch), b_total, pad_to or b_total,
-                         self.backend, dt * 1e3)
+            logger.debug(
+                "dispatch: graphs=%d blocks=%d->%d backend=%s (%s) %.1fms",
+                len(batch), b_total, pad_to or b_total, executed,
+                decision.reason if decision else self.backend, dt * 1e3)
 
         # update every counter BEFORE resolving any future: a synchronous
         # caller unblocks the moment its future resolves and may read
@@ -523,8 +530,8 @@ class GraphServeEngine:
                                  if self.batches_dispatched else 0.0),
             rows_per_s=(self.rows_served / self.total_serve_s
                         if self.total_serve_s else 0.0),
-            # which kernel each fused dispatch executed on (K1 counts as
-            # resident; windowed and hbm stay 0 until their kernels exist)
+            # which kernel each fused dispatch executed on: K1 resident,
+            # K2 windowed, K3 hbm, the PyTorch twin blocked
             routed_resident=self.backend_dispatches["resident"],
             routed_windowed=self.backend_dispatches["windowed"],
             routed_hbm=self.backend_dispatches["hbm"],

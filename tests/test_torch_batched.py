@@ -89,9 +89,9 @@ def test_fused_batch_validation():
     graphs = [_int_graph(50, seed=1)]
     _, port = _plans(graphs, CFGS[:1])
     x = torch.ones(graphs[0].n_cols, 3)
-    with pytest.raises(ValueError, match="backend must be accel|blocked"):
+    with pytest.raises(ValueError, match="backend must be auto|pallas"):
         port_b.spmm_batched([port[0].slabs], [x], [port[0].n_rows],
-                            backend="pallas")
+                            backend="segment")
     with pytest.raises(ValueError, match="one feature matrix"):
         port_b.spmm_batched([port[0].slabs], [x, x], [port[0].n_rows])
     with pytest.raises(ValueError, match="one n_rows"):

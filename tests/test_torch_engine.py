@@ -111,8 +111,7 @@ def test_validation_errors_and_backends():
     with pytest.raises(ValueError, match="backend must be"):
         GraphServeEngine(device="cpu", backend="segment")
     for be in ("auto", "pallas", "windowed", "hbm"):
-        with pytest.raises(ValueError, match="ROADMAP queue 2"):
-            GraphServeEngine(device="cpu", backend=be)
+        GraphServeEngine(device="cpu", backend=be).close()
     with pytest.raises(ValueError, match="plan cache stages on"):
         GraphServeEngine(device="cpu", cache=PlanCache(device="meta"))
     if torch.cuda.is_available():

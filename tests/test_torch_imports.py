@@ -39,6 +39,7 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
     for mod in ("core.graph", "core.partition", "core.plan_cache",
                 "core.spmm", "data.graphs", "kernels.ref", "kernels.ops",
                 "kernels.spmm_accel", "kernels.spmm_batched",
+                "kernels.router", "kernels.spmm_hbm",
                 "models.layers", "models.gcn", "serve.scheduler",
                 "serve.graph_engine"):
         assert f"repro_torch.{mod}" in have

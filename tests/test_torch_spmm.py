@@ -11,6 +11,7 @@ from repro.core.spmm import make_accel_spmm as ref_make
 from repro_torch.core import graph as port_graph
 from repro_torch.core import spmm as port_spmm
 from repro_torch.core.plan_cache import PartitionConfig, PlanCache
+from repro_torch.kernels.router import VmemBudgetError
 
 from conftest import make_powerlaw_csr
 
@@ -57,12 +58,21 @@ def test_from_plan_cache_and_backend_override():
 
 
 def test_unknown_and_unported_backends_raise():
+    """Unknown backends raise; the router regimes, ported now, run, and the
+    forced-resident one refuses a feature operand past its threshold."""
     _, pg = _graph(seed=4)
     op = port_spmm.make_accel_spmm(pg, device="cpu")
     x = torch.ones(pg.n_cols, 2)
-    for be in ("pallas", "auto", "nope"):
+    for be in ("nope", "segment_sum"):
         with pytest.raises(ValueError, match="unknown backend"):
             op(x, backend=be)
+    for be in ("pallas", "auto", "windowed", "hbm"):
+        assert torch.equal(op(x, backend=be), op(x))
+    wide = port_graph.CSRGraph(np.array([0, 1, 2]), np.array([0, 5000]),
+                               np.ones(2, np.float32), 5001)
+    wide_op = port_spmm.make_accel_spmm(wide, device="cpu")
+    with pytest.raises(VmemBudgetError, match="windowed"):
+        wide_op(torch.ones(5001, 3), backend="pallas")
 
 
 def test_make_accel_spmm_defaults_to_cuda():

@@ -7,9 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name, power limit, torch and CUDA versions; TF32 is switched
    off for matmuls and cuDNN so every fp32 product is full fp32;
-2. build K1, K2 and K3 (``src/repro_torch/csrc/spmm_accel.cu``,
-   ``spmm_windowed.cu``, ``spmm_hbm.cu``) with nvcc for sm_90a, all three
-   at once, and print ptxas' registers, shared memory and spills;
+2. build K1, K2, K3 and K4 (``src/repro_torch/csrc/spmm_accel.cu``,
+   ``spmm_windowed.cu``, ``spmm_hbm.cu``, ``grouped_matmul.cu``) with nvcc
+   for sm_90a, all four at once, and print ptxas' registers, shared memory
+   and spills;
 3. each kernel against its plain PyTorch version on the card, in both
    partition modes: zero-degree rows, degree == deg_bound, degree > C
    (split rows), F in {1, 100, 2048}, and merged batched slabs with
@@ -34,7 +35,26 @@ Phases (any failure exits non-zero and prints no result line):
    F=2048 (K3 also at other gather-stage heights, a diagnostic of what
    bounds it), K2 on the 25m graph at F=2048, each beside its plain version,
    ``torch.sparse.mm`` on the same A and X (a yardstick the port never
-   calls) and the memory bound; then the ``{"kernels": [...]}`` line, the
+   calls) and the memory bound;
+8. K4, the grouped GEMM, against its plain version on edge cases (an
+   expert with no rows, a single expert, trailing clipped blocks, m_tile
+   8/16/128/160, K and N not multiples of 4, fp32 and bf16 x and w in every
+   combination; integer inputs exact, float inputs within
+   ``(K+1) * 2**-24 * (|x| @ |w|)`` of the fp64 product), then exact on
+   integers at dbrx-132b's full wi and wo widths, at 144 and 20 row blocks
+   (the two token counts of phase 9);
+9. slice C1's path: ``moe_block`` at dbrx-132b's full width (d_model 6144,
+   d_ff 10752, 16 experts, top-4) through K4, weights from ``init_moe``
+   (router fp32, experts bf16): {4,096 tokens, 128 tokens} x {balanced,
+   skewed} routing and one fp32 run. K4 launches: 3 per call. In each case
+   the three products (wi, wg, wo), rebuilt from the dispatch, are each
+   held against the plain version on the same operands
+   (``k4_pair_check``), and the outputs of K4's path and of the twin
+   against an fp64 oracle on a sample of 256 tokens (bound in
+   ``moe_oracle``);
+10. K4 times at 4,096 tokens (each GEMM in bf16, wi in fp32, the whole
+   ``moe_block``, the plain version, ``torch._grouped_mm`` as the library
+   yardstick) beside the bound; then the ``{"kernels": [...]}`` line, the
    card line, and the ``{"ok": true, ...}`` line last.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
@@ -46,6 +66,7 @@ the window partials of each block row, so its k grows by the number of
 windows. Served answers are held to that bound against an fp64 CSR oracle;
 a kernel and its plain version, both fp32, to twice it.
 """
+import gc
 import json
 import os
 import subprocess
@@ -58,6 +79,7 @@ SRC = os.path.join(ROOT, "src")
 U = 2.0 ** -24                # fp32 unit roundoff
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_FLOPS = 67e12            # H100 SXM fp32 rate outside the tensor cores
+BF16_FLOPS = 989.4e12         # H100 SXM dense bf16 tensor-core rate
 DIMS = [1024, 2048, 2048, 2048, 2048, 256]   # examples/train_gcn.py "25m"
 N_CLASSES = 256
 GRAPHS = ("Reddit", "Arxiv")
@@ -135,7 +157,8 @@ def phase_build():
     from repro_torch.kernels.build import build_all
     t0 = time.perf_counter()
     built = build_all()
-    log(f"K1, K2, K3 built in parallel in {time.perf_counter() - t0:.1f}s")
+    log(f"K1, K2, K3, K4 built in parallel in "
+        f"{time.perf_counter() - t0:.1f}s")
     C, R, f_tile, rows = 256, 64, 128, 4096 // 128
     smem_calls = {"spmm_accel": ("spmm_block_slabs_smem_bytes", (C, R, f_tile)),
                   "spmm_windowed": ("spmm_windowed_smem_bytes",
@@ -147,6 +170,8 @@ def phase_build():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling")):
                 log(f"ptxas: {line.strip()}")
+        if name not in smem_calls:          # K4: static shared memory only
+            continue
         fn_name, args = smem_calls[name]
         fn = getattr(ctypes.CDLL(str(path)), fn_name)
         fn.argtypes = [ctypes.c_int] * len(args)
@@ -838,6 +863,412 @@ def phase_timing(torch, graphs, engine, launches, float_err):
     return records
 
 
+# ------------------------------------------------------------ slice C1
+# K4 edge cases: rows per expert in blocks (0 = an expert with no rows),
+# trailing blocks past the last expert (clipped to E-1, zero rows), m_tile.
+# tests/test_torch_kernels_gpu.py holds the same cases: this script imports
+# nothing of the tests, so it keeps its own copy.
+K4_CASES = {
+    "empty_expert": ([2, 0, 1, 3], 0, 16),
+    "single_expert": ([4], 0, 16),
+    "trailing_blocks": ([1, 2, 0], 3, 8),
+    "m_tile_128": ([2, 1, 0, 1], 1, 128),
+    "m_tile_160": ([1, 0, 2], 1, 160),
+}
+
+
+def gmm_oracle(torch, x, w, be, m_tile):
+    """fp64 ``out[b-th block rows] = x[rows] @ w[be[b]]`` and the same with
+    |x| and |w| (the magnitude that scales the summation bound)."""
+    M = x.shape[0]
+    out = torch.zeros((M, w.shape[2]), dtype=torch.float64, device=x.device)
+    mag = torch.zeros_like(out)
+    for b, e in enumerate(be.tolist()):
+        rows = slice(b * m_tile, (b + 1) * m_tile)
+        xb, we = x[rows].double(), w[e].double()
+        out[rows] = xb @ we
+        mag[rows] = xb.abs() @ we.abs()
+    return out, mag
+
+
+def k4_case(torch, dev, gen, case, K, N, xd, wd, integer):
+    blocks, trailing, m_tile = K4_CASES[case]
+    E = len(blocks)
+    be = torch.cat([torch.arange(E, device=dev).repeat_interleave(
+        torch.tensor(blocks, device=dev)),
+        torch.full((trailing,), E - 1, device=dev)]).to(torch.int32)
+    M = be.numel() * m_tile
+    if integer:
+        x = torch.randint(-2, 3, (M, K), generator=gen, device=dev).float()
+        w = torch.randint(-2, 3, (E, K, N), generator=gen, device=dev).float()
+    else:
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((E, K, N), generator=gen, device=dev)
+    x[M - trailing * m_tile:] = 0
+    return x.to(xd), w.to(wd), be, m_tile
+
+
+def phase_k4_cases(torch, dev, arch="dbrx-132b", n_blocks=(144, 20)):
+    """K4 against its plain version on edge cases (an expert with no rows,
+    a single expert, trailing clipped blocks, m_tile 8/16/128/160, K and N
+    not multiples of 4), every combination of fp32 and bf16 x and w:
+    integer inputs exact; float inputs with K4 and the plain version each
+    within (K+1) u (|x| @ |w|) of the fp64 product. Then K4 exact on the
+    wi and wo products at ``arch``'s full width, integers |x|, |w| <= 2,
+    bf16, for each of ``n_blocks`` balanced row blocks (every sum stays
+    below 4 K <= 2**24). Returns max |K4 - plain| over the float cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst, n_cases = 0.0, 0
+    for case in K4_CASES:
+        for xn, xd in dtypes.items():
+            for wn, wd in dtypes.items():
+                K, N = 99, 301
+                x, w, be, mt = k4_case(torch, dev, gen, case, K, N, xd, wd,
+                                       True)
+                got = grouped_matmul(x, w, be, m_tile=mt, k_tile=K, n_tile=N)
+                if not torch.equal(got, grouped_matmul_plain(x, w, be, mt)):
+                    raise AssertionError(f"K4 {case} x {xn} w {wn}: differs "
+                                         f"from its plain version on integer "
+                                         f"inputs")
+                K, N = 512, 258
+                x, w, be, mt = k4_case(torch, dev, gen, case, K, N, xd, wd,
+                                       False)
+                got = grouped_matmul(x, w, be, m_tile=mt, n_tile=N)
+                plain = grouped_matmul_plain(x, w, be, mt)
+                want, mag = gmm_oracle(torch, x, w, be, mt)
+                bound = (K + 1) * U * mag
+                check_close(f"K4 {case} x {xn} w {wn} vs fp64", got, want,
+                            bound)
+                check_close(f"plain {case} x {xn} w {wn} vs fp64", plain,
+                            want, bound)
+                worst = max(worst, float((got - plain).abs().max()))
+                n_cases += 2
+    log(f"K4 == plain on {n_cases // 2} integer cases; {n_cases // 2} float "
+        f"cases within (K+1) u (|x| @ |w|) of fp64, max |K4 - plain| "
+        f"{worst:.3e}")
+
+    cfg = get_config(arch)
+    E, D, FF = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for prod, K, N in (("wi", D, FF), ("wo", FF, D)):
+        w = torch.randint(-2, 3, (E, K, N), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        for nb in n_blocks:
+            be = (torch.arange(nb, device=dev) * E // nb).to(torch.int32)
+            x = torch.randint(-2, 3, (nb * 128, K), generator=gen,
+                              device=dev).to(torch.bfloat16)
+            got = grouped_matmul(x, w, be)
+            want = grouped_matmul_plain(x, w, be)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4 at {arch}'s {prod} width "
+                                     f"({nb * 128} x {K} @ {E} x {K} x {N},"
+                                     f" integers) is not exact")
+            log(f"K4 exact at {arch}'s {prod} width on integers: {nb * 128} "
+                f"x {K} @ [{E}, {K}, {N}] bf16, max |out| "
+                f"{float(want.abs().max()):.0f}")
+            del got, want, x
+        del w
+    return worst
+
+
+def dispatched_rows(torch, x, meta):
+    """x's (token, slot) rows in moe_block's padded, expert-sorted order:
+    the operand of its first two grouped GEMMs."""
+    D = x.shape[-1]
+    k = meta["ids"].shape[1]
+    xs = torch.zeros((meta["M"], D), dtype=x.dtype, device=x.device)
+    xs[meta["dst"]] = x.reshape(-1, D)[meta["order"] // k]
+    return xs
+
+
+def k4_pair_check(torch, label, a, w, be, m_tile):
+    """K4 against its plain version on the same operands. Each is an fp32
+    sum of K products within (K+1) u (|a| @ |w|) of the exact product
+    (bf16 x bf16 products are exact in fp32; an fp32 product rounds once),
+    so the two differ by at most twice that. |a| @ |w| is itself taken by
+    the plain version, an fp32 sum of non-negative terms low by at most a
+    factor 1 - (K+1) u, which the bound divides out. Returns (K4's output,
+    max |K4 - plain|)."""
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_plain)
+    K = a.shape[1]
+    got = grouped_matmul(a, w, be, m_tile=m_tile)
+    plain = grouped_matmul_plain(a, w, be, m_tile)
+    mag = grouped_matmul_plain(a.abs(), w.abs(), be, m_tile)
+    bound = mag.double() * (2 * (K + 1) * U / (1 - (K + 1) * U))
+    del mag
+    err = check_close(label, got, plain, bound)
+    return got, err
+
+
+def moe_oracle(torch, p, x, y, ids, route_w, idx):
+    """Hold moe_block's output rows ``y[idx]`` against an fp64 oracle
+    computed per expert from the same operands (x, the expert weights and
+    the router's ids and weights of this run). Returns (max abs error, max
+    error / bound).
+
+    The bound, per token and output column, follows the port's dtype flow
+    with u the unit roundoff of x's dtype (2**-8 bf16, 2**-24 fp32) and
+    v = 2**-24:
+      h = x.Wi, g = x.Wg: fp32 sums of D products, then rounded to x's
+        dtype:  eh = u|h| + (1+u)(D+1) v (|x|.|Wi|), eg likewise;
+      s = silu(g) in fp32 of the rounded g (|silu'| <= 1.1), rounded:
+        es = 1.1 eg + (u + 4v)(|s| + 1.1 eg);
+      a = s h rounded once:  ea = ep + u(|a| + ep),
+        ep = es(|h| + eh) + |s| eh;
+      y = a.Wo, an fp32 sum of FF products of the rounded a:
+        ey = (ea + (FF+1) v (|a| + ea)) . |Wo|;
+      the combine, k fp32 products by the router weights p_j >= 0 summed
+      in fp32: eo = sum_j p_j ey_j + (k+1) v sum_j p_j (|y_j| + ey_j);
+      the cast of the combine to x's dtype:  eo + u(|out| + eo).
+    Every step is the worst case of a rounding or of a sum, so the bound
+    holds for any summation order; it is loose by about sqrt(FF) for
+    random data, and the ratio it logs shows how loose."""
+    v = U
+    u = 2.0 ** -8 if x.dtype == torch.bfloat16 else U
+    D = x.shape[-1]
+    FF = p["wi"].shape[2]
+    k = ids.shape[1]
+    xt = x.reshape(-1, D)[idx].double()
+    ids_s, pw = ids[idx], route_w[idx].double()
+    want = torch.zeros((len(idx), D), dtype=torch.float64, device=x.device)
+    err = torch.zeros_like(want)
+    mag = torch.zeros_like(want)
+    for e in torch.unique(ids_s).tolist():
+        t_j = (ids_s == e).nonzero()
+        rows, slot = t_j[:, 0], t_j[:, 1]
+        xe = xt[rows]
+        wi, wg, wo = (p[n][e].double() for n in ("wi", "wg", "wo"))
+        h, g = xe @ wi, xe @ wg
+        eh = u * h.abs() + (1 + u) * (D + 1) * v * (xe.abs() @ wi.abs())
+        eg = u * g.abs() + (1 + u) * (D + 1) * v * (xe.abs() @ wg.abs())
+        del wi, wg
+        s = torch.nn.functional.silu(g)
+        es = 1.1 * eg + (u + 4 * v) * (s.abs() + 1.1 * eg)
+        a = s * h
+        ep = es * (h.abs() + eh) + s.abs() * eh
+        ea = ep + u * (a.abs() + ep)
+        ye = a @ wo
+        ey = (ea + (FF + 1) * v * (a.abs() + ea)) @ wo.abs()
+        pj = pw[rows, slot][:, None]
+        want.index_add_(0, rows, pj * ye)
+        err.index_add_(0, rows, pj * ey)
+        mag.index_add_(0, rows, pj * (ye.abs() + ey))
+    eo = err + (k + 1) * v * mag
+    bound = eo + u * (want.abs() + eo)
+    got = y.reshape(-1, D)[idx]
+    max_err = check_close("moe_block vs fp64 oracle", got, want, bound)
+    ratio = float(((got.double() - want).abs() / bound).max())
+    return max_err, ratio
+
+
+def phase_moe(torch, dev, arch="dbrx-132b", tokens=((4, 1024), (128, 1)),
+              skew=8.0, sample=256):
+    """Slice C1's main path: ``moe_block`` at ``arch``'s full width through
+    K4. Weights from ``init_moe`` with a seeded generator on the card
+    (router fp32, experts bf16); x bf16 [B, T, D] from a seed for each
+    token shape, with balanced and skewed routing (+``skew`` on the router
+    column of expert 0, as examples/moe_block_dispatch.py does); then one
+    fp32 run (fp32 weights and x) at the first token shape, balanced. The
+    K4 launches of these five calls are the path's count: 3 per call. Then
+    in each case the dispatch is rebuilt from the router (``block_dispatch``
+    with moe_block's default m_tile) and each of the three products (wi,
+    wg, then wo on the gated h) is held against the plain version on the
+    same operands (``k4_pair_check``); the outputs of K4's path and of the
+    twin (use_pallas=False) are held against an fp64 oracle over a seeded
+    sample of ``sample`` tokens. Returns what the timing phase needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.models.moe import (_route, block_dispatch, init_moe,
+                                        moe_block)
+    m_tile = 128                           # moe_block's default
+    cfg = get_config(arch)
+    D, FF, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    kw = dict(top_k=k, n_experts=E)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_moe(gen, D, FF, E, device=dev)
+    p32 = init_moe(gen, D, FF, E, dtype=torch.float32, device=dev)
+    bias = torch.zeros(E, device=dev)
+    bias[0] = skew
+    routers = {"balanced": p, "skewed": dict(p, router=p["router"] + bias)}
+    xgen = torch.Generator(device=dev).manual_seed(1)
+    xs = {bt: torch.randn((*bt, D), generator=xgen, device=dev).to(
+        torch.bfloat16) for bt in tokens}
+    x32 = torch.randn((*tokens[0], D), generator=xgen, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"{arch}: d_model={D} d_ff={FF} {E} experts top-{k}; expert weights "
+        f"{sum(p[n].numel() for n in ('wi', 'wg', 'wo')) * 2 / 1e9:.2f} GB "
+        f"bf16 and {sum(p32[n].numel() for n in ('wi', 'wg', 'wo')) * 4 / 1e9:.2f}"
+        f" GB fp32, drawn in {time.perf_counter() - t0:.1f}s")
+
+    runs = [(f"{bt[0] * bt[1]} tokens {name}", routers[name], xs[bt])
+            for bt in tokens for name in ("balanced", "skewed")]
+    runs.append((f"{tokens[0][0] * tokens[0][1]} tokens balanced fp32", p32,
+                 x32))
+    grouped_matmul.launches = 0            # main path starts here
+    t_main = time.perf_counter()
+    outs = []
+    for label, params, x in runs:
+        before = grouped_matmul.launches
+        y, aux = moe_block(params, x, **kw)
+        outs.append((y, aux, grouped_matmul.launches - before))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_main = time.perf_counter() - t_main
+    launches = grouped_matmul.launches     # main path ends here
+    per_call = [n for _, _, n in outs]
+    log(f"moe_block main path: {len(runs)} calls in {t_main:.2f}s, K4 "
+        f"launches {launches} ({per_call} per call)")
+    if launches != 3 * len(runs) or any(n != 3 for n in per_call):
+        raise AssertionError(f"K4 launches {per_call} per moe_block call, "
+                             f"want 3 each")
+
+    sgen = torch.Generator().manual_seed(2)
+    metas = []
+    for (label, params, x), (y, aux, _) in zip(runs, outs):
+        n_tok = x.shape[0] * x.shape[1]
+        if tuple(y.shape) != tuple(x.shape) or y.dtype != x.dtype or \
+                not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{label}: output {tuple(y.shape)} "
+                                 f"{y.dtype} not finite or of x's shape")
+        route_w, ids, _ = _route(params, x.reshape(-1, D), k, True)
+        meta = block_dispatch(ids, E, m_tile)
+        metas.append(meta)
+        be = meta["block_expert"]
+        xs_r = dispatched_rows(torch, x, meta)
+        h, err_i = k4_pair_check(torch, f"{label}: K4 wi vs plain", xs_r,
+                                 params["wi"], be, m_tile)
+        g, err_g = k4_pair_check(torch, f"{label}: K4 wg vs plain", xs_r,
+                                 params["wg"], be, m_tile)
+        del xs_r
+        h, g = h.to(x.dtype), g.to(x.dtype)
+        h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
+        del g
+        _, err_o = k4_pair_check(torch, f"{label}: K4 wo vs plain", h,
+                                 params["wo"], be, m_tile)
+        del h
+        y_t, _ = moe_block(params, x, use_pallas=False, **kw)
+        idx = torch.randperm(n_tok, generator=sgen)[:sample].to(dev)
+        err, ratio = moe_oracle(torch, params, x, y, ids, route_w, idx)
+        err_t, ratio_t = moe_oracle(torch, params, x, y_t, ids, route_w, idx)
+        counts = meta["counts"].double()
+        live = int((-(-meta["counts"] // m_tile)).sum())
+        log(f"{label}: loads max/mean {float(counts.max() / counts.mean()):.2f}"
+            f" (min {int(counts.min())}, max {int(counts.max())}), "
+            f"{be.numel()} blocks ({live} live), aux {float(aux):.4f}; max "
+            f"|K4 - plain| wi {err_i:.3e} wg {err_g:.3e} wo {err_o:.3e}; vs "
+            f"fp64 oracle on {len(idx)} tokens: K4 max err {err:.3e} "
+            f"({ratio:.4f} of the bound), twin {err_t:.3e} ({ratio_t:.4f}); "
+            f"max |K4 path - twin| "
+            f"{float((y.float() - y_t.float()).abs().max()):.3e}")
+        del y_t
+    return p, p32, xs, x32, metas[0], launches
+
+
+def gmm_bound(M, K, N, n_used, x_bytes, w_bytes, peak, nb):
+    """The least time the card could take for one grouped GEMM: its flops
+    (padding rows included: K4 multiplies them) over ``peak``, or its
+    bytes (x, the weights of the experts used, the fp32 output and the
+    block ids, each once) over the memory rate."""
+    flops = 2.0 * M * K * N
+    moved = M * K * x_bytes + n_used * K * N * w_bytes + M * N * 4 + nb * 4
+    ops_ms, bytes_ms = flops / peak * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, moved)
+
+
+def phase_timing_k4(torch, p, p32, xs_by_shape, x32, meta, launches,
+                    float_err, reps=10, reps_f32=3):
+    """K4 at the first token shape of phase_moe (balanced): each of the
+    three GEMMs in bf16, wi with fp32 operands, the whole moe_block, the
+    plain version of wi, and torch._grouped_mm (bf16 in and out; a
+    yardstick the port never calls) on the same bf16 operands; then the
+    whole moe_block at every other token shape. K4 is timed through the
+    entry moe_block uses, which skips the public wrapper's expert-id range
+    check and its device sync."""
+    x = next(iter(xs_by_shape.values()))
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_in_range as grouped_matmul, grouped_matmul_plain)
+    from repro_torch.models.moe import moe_block
+    D = x.shape[-1]
+    E, _, FF = p["wi"].shape
+    k = meta["ids"].shape[1]
+    be, M = meta["block_expert"], meta["M"]
+    m_tile = M // be.numel()
+    xs = dispatched_rows(torch, x, meta)
+    xs32 = dispatched_rows(torch, x32, meta)
+    h = grouped_matmul(xs, p["wi"], be).to(x.dtype)
+    g = grouped_matmul(xs, p["wg"], be).to(x.dtype)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
+    del g
+    n_used = int((meta["counts"] > 0).sum())
+    gemms = {"wi": (xs, p["wi"]), "wg": (xs, p["wg"]), "wo": (h, p["wo"])}
+    ms = {}
+    for name, (a, w) in gemms.items():
+        grouped_matmul(a, w, be)
+        ms[name] = cuda_ms(lambda a=a, w=w: grouped_matmul(a, w, be), reps)
+    grouped_matmul(xs32, p32["wi"], be)
+    ms["wi fp32"] = cuda_ms(lambda: grouped_matmul(xs32, p32["wi"], be),
+                            reps_f32)
+    ms["wi again"] = cuda_ms(lambda: grouped_matmul(xs, p["wi"], be), reps)
+    moe_block(p, x, top_k=k, n_experts=E)
+    ms["moe_block"] = cuda_ms(lambda: moe_block(p, x, top_k=k, n_experts=E),
+                              3)
+    for bt, xb in list(xs_by_shape.items())[1:]:
+        moe_block(p, xb, top_k=k, n_experts=E)
+        t = cuda_ms(lambda xb=xb: moe_block(p, xb, top_k=k, n_experts=E),
+                    reps)
+        log(f"whole moe_block at {bt[0] * bt[1]} tokens (balanced): "
+            f"{t:.3f} ms; reading the {E} experts' bf16 weights once takes "
+            f"{3 * p['wi'].numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"the memory rate")
+    grouped_matmul_plain(xs, p["wi"], be)
+    ms["plain"] = cuda_ms(lambda: grouped_matmul_plain(xs, p["wi"], be), 3)
+    offs = torch.cumsum(-(-meta["counts"] // m_tile) * m_tile, 0).to(
+        torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        lib = lambda: torch._grouped_mm(xs, p["wi"], offs=offs)  # noqa: E731
+        got, ref = lib(), grouped_matmul(xs, p["wi"], be)
+        rows = int(offs[-1])
+        lib_err = float((got[:rows].float() - ref[:rows]).abs().max()
+                        / ref[:rows].abs().max())
+        del got, ref
+        library_ms = cuda_ms(lib, reps)
+        log(f"torch._grouped_mm (bf16 output, the {rows} rows the experts "
+            f"cover; the {M - rows} trailing rows skipped): {library_ms:.3f}"
+            f" ms, max |lib - K4| / max|K4| {lib_err:.2e}")
+    else:
+        library_ms = None
+        log(f"torch {torch.__version__} has no torch._grouped_mm: "
+            f"library_ms is null")
+    bounds = {}
+    for name, (a, w) in gemms.items():
+        K, N = w.shape[1], w.shape[2]
+        bounds[name] = gmm_bound(M, K, N, n_used, 2, 2, BF16_FLOPS, be.numel())
+    bounds["wi fp32"] = gmm_bound(M, D, FF, n_used, 4, 4, FP32_FLOPS,
+                                  be.numel())
+    for name, (b_ms, b_by, flops, moved) in bounds.items():
+        log(f"K4 {name}: {ms[name]:.3f} ms, {flops / ms[name] / 1e9:.2f} "
+            f"TFLOP/s; bound {b_ms:.3f} ms by {b_by} ({flops / 1e12:.3f} "
+            f"TFLOP, {moved / 1e9:.3f} GB); {b_ms / ms[name] * 100:.2f}% of "
+            f"the bound")
+    log(f"K4 wi again {ms['wi again']:.3f} ms; whole moe_block (3 K4 "
+        f"launches + dispatch + combine) {ms['moe_block']:.3f} ms; plain "
+        f"version of wi (fp32 cuBLAS per expert run) {ms['plain']:.3f} ms")
+    return {"name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:33",
+            "launches": launches, "max_abs_err": float_err,
+            "ms": ms["wi"], "plain_ms": ms["plain"],
+            "bound_ms": bounds["wi"][0], "bound_by": bounds["wi"][1],
+            "library_ms": library_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -862,8 +1293,15 @@ def main():
     k1, k3 = phase_timing(torch, graphs, engine, launches, float_err)
     k2 = phase_timing_k2(torch, small, small_engine, launches,
                          float_err["K2"])
-    log(f"total {time.perf_counter() - t0:.1f}s")
-    records = [k1, k2, k3]
+    del graphs, engine, small, small_engine
+    gc.collect()
+    torch.cuda.empty_cache()                # the GCN phases' memory goes
+    k4_err = phase_k4_cases(torch, dev)
+    p, p32, xs, x32, meta, k4_launches = phase_moe(torch, dev)
+    k4 = phase_timing_k4(torch, p, p32, xs, x32, meta, k4_launches, k4_err)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; total {time.perf_counter() - t0:.1f}s")
+    records = [k1, k2, k3, k4]
     print(json.dumps({"kernels": records}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ __all__ = ["KERNEL_SOURCES", "build_kernel", "build_all", "load_kernel"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("spmm_accel", "spmm_windowed", "spmm_hbm")
+KERNEL_SOURCES = ("spmm_accel", "spmm_windowed", "spmm_hbm", "grouped_matmul")
 
 _locks: Dict[str, threading.Lock] = {n: threading.Lock() for n in KERNEL_SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Slab-dict wrappers around the kernels and the portable PyTorch twin.
+"""Slab-dict wrappers around the kernels and the portable PyTorch twins.
 
 Like the reference package (``src/repro/kernels/ops.py``), the slab SpMM has
 these callables:
@@ -15,18 +15,25 @@ these callables:
                                jnp twin
   * oracle                   — in ref.py (layout-free ground truth)
 
+The grouped GEMM has two:
+  * ``grouped_matmul_pallas``  — K4, the CUDA kernel
+  * ``grouped_matmul_blocked`` — the PyTorch twin: per-block weight pick and
+                                 a dense fp32 product
+
 Every kernel takes its plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from .grouped_matmul import grouped_matmul, grouped_matmul_plain
 from .router import assert_resident_fits, resident_window_rows, route_spmm
 from .spmm_accel import spmm_block_slabs, spmm_block_slabs_windowed
 from .spmm_hbm import spmm_block_slabs_hbm
 
 __all__ = ["spmm_accel", "spmm_pallas", "spmm_pallas_windowed",
-           "spmm_pallas_hbm", "spmm_auto", "spmm_blocked"]
+           "spmm_pallas_hbm", "spmm_auto", "spmm_blocked",
+           "grouped_matmul_pallas", "grouped_matmul_blocked"]
 
 # elements of the [blocks, C, F] gather the twin materialises at once
 _BLOCKED_CHUNK_ELEMS = 1 << 25
@@ -97,3 +104,13 @@ def spmm_blocked(colidx, values, rowloc, out_row, x, n_rows):
         out.index_add_(0, out_row[lo:hi].reshape(-1).long(),
                        slab_out.reshape(-1, F))
     return out[:n_rows]
+
+
+def grouped_matmul_pallas(x, w, block_expert, **tiles):
+    """K4 (``m_tile``, ``k_tile``, ``n_tile`` as the reference's)."""
+    return grouped_matmul(x, w, block_expert, **tiles)
+
+
+def grouped_matmul_blocked(x, w, block_expert, m_tile: int = 128):
+    """PyTorch twin: per-block weight pick + dense fp32 product."""
+    return grouped_matmul_plain(x, w, block_expert, m_tile)

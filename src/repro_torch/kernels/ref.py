@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles for the slab SpMM.
+"""Plain PyTorch oracles for the slab SpMM and the grouped GEMM.
 
 Ground truth for the kernel tests: simple, obviously-correct formulations
 with no tiling, padding or layout tricks. They are test oracles and never
@@ -11,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["csr_spmm_ref", "slab_spmm_ref"]
+__all__ = ["csr_spmm_ref", "slab_spmm_ref", "grouped_matmul_ref"]
 
 
 def csr_spmm_ref(rowptr: np.ndarray, colidx: np.ndarray, values: np.ndarray,
@@ -60,3 +60,23 @@ def slab_spmm_ref(colidx: torch.Tensor, values: torch.Tensor,
     out.index_add_(0, out_row.reshape(B * R).long(),
                    slab_out.reshape(B * R, -1))
     return out[:n_rows]
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped GEMM oracle: rows of x are grouped contiguously by expert.
+
+    x: [M, K]; w: [E, K, N]; group_sizes: int[E]. ``out[m] = x[m] @ w[e(m)]``
+    in fp32, where e(m) is m's group. As ``jnp.repeat`` with
+    ``total_repeat_length=M`` does, groups past M rows are cut and rows past
+    the groups' sum belong to the last expert. Memory-naive on purpose
+    (``[M, K, N]`` weights per row).
+    """
+    M = x.shape[0]
+    E = w.shape[0]
+    experts = torch.arange(E, device=x.device)
+    e_of_row = torch.repeat_interleave(experts, group_sizes.long())[:M]
+    if e_of_row.numel() < M:
+        e_of_row = torch.cat([e_of_row, experts[-1:].expand(
+            M - e_of_row.numel())])
+    return torch.einsum("mk,mkn->mn", x.float(), w[e_of_row].float())

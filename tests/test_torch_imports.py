@@ -40,8 +40,14 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "core.spmm", "data.graphs", "kernels.ref", "kernels.ops",
                 "kernels.spmm_accel", "kernels.spmm_batched",
                 "kernels.router", "kernels.spmm_hbm",
-                "models.layers", "models.gcn", "serve.scheduler",
-                "serve.graph_engine"):
+                "kernels.grouped_matmul", "models.layers", "models.gcn",
+                "models.moe", "serve.scheduler", "serve.graph_engine",
+                "configs.base", "configs.dbrx_132b",
+                "configs.deepseek_moe_16b", "configs.qwen1p5_32b",
+                "configs.phi3_mini_3p8b", "configs.gemma2_27b",
+                "configs.internlm2_20b", "configs.zamba2_7b",
+                "configs.hubert_xlarge", "configs.chameleon_34b",
+                "configs.mamba2_780m"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on the card against their plain versions (needs a CUDA
-device).
+"""K1, K2, K3 and K4 on the card against their plain versions (needs a
+CUDA device).
 
 Run on a machine with the card:
 
@@ -10,7 +10,10 @@ where only PyTorch is installed. Integer-valued graphs make every sum exact
 in fp32: each kernel must equal its plain version bit for bit. On
 normalized graphs two fp32 results may differ by twice the summation bound
 ``k * 2**-24 * (|A| @ |x|)``, ``k = min(deg, C) + ceil(deg / C) + 1`` per
-row, plus ``num_windows`` for K2.
+row, plus ``num_windows`` for K2. K4's sums of K products are each within
+``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order on
+the card, any order in the plain version), so the two differ by at most
+twice that; integer inputs keep every sum exact.
 """
 import numpy as np
 import pytest
@@ -24,8 +27,11 @@ from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
                                             spmm_block_slabs_windowed,
                                             spmm_block_slabs_windowed_plain)
 from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_plain)
 from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
                                           spmm_block_slabs_hbm_plain)
+from repro_torch.models.moe import _route, block_dispatch, init_moe, moe_block
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +181,107 @@ def test_routed_kernels_normalized_graph_within_summation_bound(cuda, kernel):
     k = np.minimum(deg, cfg.deg_bound) + -(-deg // cfg.deg_bound) + 1 + levels
     bound = 2 * 2.0 ** -24 * torch.as_tensor(k, device=cuda)[:, None] * mag
     assert torch.all((got.double() - want.double()).abs() <= bound)
+
+
+# K4 edge cases: rows per expert in blocks (0 = an expert with no rows),
+# trailing blocks past the last expert (clipped to E-1, zero rows), m_tile.
+# chip_smoke.py keeps its own copy: it imports nothing of the tests.
+K4_CASES = {
+    "empty_expert": ([2, 0, 1, 3], 0, 16),
+    "single_expert": ([4], 0, 16),
+    "trailing_blocks": ([1, 2, 0], 3, 8),
+    "m_tile_128": ([2, 1, 0, 1], 1, 128),
+    "m_tile_160": ([1, 0, 2], 1, 160),
+}
+K4_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _k4_inputs(case, K, N, xd, wd, integer, cuda, seed=0):
+    blocks, trailing, m_tile = K4_CASES[case]
+    E = len(blocks)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    be = torch.cat([torch.arange(E, device=cuda).repeat_interleave(
+        torch.tensor(blocks, device=cuda)),
+        torch.full((trailing,), E - 1, device=cuda)]).to(torch.int32)
+    M = be.numel() * m_tile
+    if integer:
+        x = torch.randint(-2, 3, (M, K), generator=gen, device=cuda).float()
+        w = torch.randint(-2, 3, (E, K, N), generator=gen, device=cuda).float()
+    else:
+        x = torch.randn((M, K), generator=gen, device=cuda)
+        w = torch.randn((E, K, N), generator=gen, device=cuda)
+    x[M - trailing * m_tile:] = 0
+    return x.to(K4_DTYPES[xd]), w.to(K4_DTYPES[wd]), be, m_tile
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+@pytest.mark.parametrize("xd", sorted(K4_DTYPES))
+@pytest.mark.parametrize("wd", sorted(K4_DTYPES))
+def test_k4_equals_plain_on_integer_inputs(cuda, case, xd, wd):
+    """K=99 and N=301: neither a multiple of 4 nor of the CTA tiles (the
+    reference's tiles are set to the whole K and N so it takes them)."""
+    K, N = 99, 301
+    x, w, be, m_tile = _k4_inputs(case, K, N, xd, wd, True, cuda)
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, be, m_tile=m_tile, k_tile=K, n_tile=N)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    assert torch.equal(got, grouped_matmul_plain(x, w, be, m_tile))
+
+
+def _k4_within_pair_bound(x, w, be, m_tile, **tiles):
+    """K4's output, asserted within twice the summation bound of the plain
+    version's on the same operands."""
+    K = x.shape[1]
+    got = grouped_matmul(x, w, be, m_tile=m_tile, **tiles)
+    want = grouped_matmul_plain(x, w, be, m_tile)
+    mag = grouped_matmul_plain(x.abs(), w.abs(), be, m_tile).double()
+    bound = 2 * (K + 1) * 2.0 ** -24 * mag
+    assert torch.all((got.double() - want.double()).abs() <= bound)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+@pytest.mark.parametrize("xd", sorted(K4_DTYPES))
+@pytest.mark.parametrize("wd", sorted(K4_DTYPES))
+def test_k4_float_inputs_within_summation_bound(cuda, case, xd, wd):
+    K, N = 512, 258
+    x, w, be, m_tile = _k4_inputs(case, K, N, xd, wd, False, cuda, seed=1)
+    _k4_within_pair_bound(x, w, be, m_tile, n_tile=N)
+
+
+@pytest.mark.parametrize("bad", [-1, 4])
+def test_k4_refuses_expert_ids_out_of_range(cuda, bad):
+    x, w, be, m_tile = _k4_inputs("empty_expert", 64, 64, "f32", "f32",
+                                  True, cuda)
+    be[1] = bad
+    before = grouped_matmul.launches
+    with pytest.raises(ValueError, match="outside"):
+        grouped_matmul(x, w, be, m_tile=m_tile)
+    assert grouped_matmul.launches == before
+
+
+def test_moe_block_launches_k4_three_times(cuda):
+    """K4 carries the three products of moe_block on the card (the twin
+    launches no kernel); each product, rebuilt from the dispatch, is within
+    the pair bound of its plain version on the same operands."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = init_moe(gen, 64, 96, 4, dtype=torch.bfloat16, device=cuda)
+    x = torch.randn((2, 40, 64), generator=gen, device=cuda).bfloat16()
+    before = grouped_matmul.launches
+    y, aux = moe_block(p, x, top_k=2, n_experts=4, m_tile=16)
+    assert grouped_matmul.launches == before + 3
+    y2, aux2 = moe_block(p, x, top_k=2, n_experts=4, m_tile=16,
+                         use_pallas=False)
+    assert grouped_matmul.launches == before + 3
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    assert float(aux) == float(aux2)
+    xt = x.reshape(-1, 64)
+    meta = block_dispatch(_route(p, xt, 2, True)[1], 4, 16)
+    xs = torch.zeros((meta["M"], 64), dtype=x.dtype, device=cuda)
+    xs[meta["dst"]] = xt[meta["order"] // 2]
+    be = meta["block_expert"]
+    h = _k4_within_pair_bound(xs, p["wi"], be, 16).to(x.dtype)
+    g = _k4_within_pair_bound(xs, p["wg"], be, 16).to(x.dtype)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
+    _k4_within_pair_bound(h, p["wo"], be, 16)

@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
 2. build K1, K2, K3 and K4 (``src/repro_torch/csrc/spmm_accel.cu``,
    ``spmm_windowed.cu``, ``spmm_hbm.cu``, ``grouped_matmul.cu``) with nvcc
    for sm_90a, all four at once, and print ptxas' registers, shared memory
-   and spills;
+   and spills, and each kernel's dynamic shared memory per CTA;
 3. each kernel against its plain PyTorch version on the card, in both
    partition modes: zero-degree rows, degree == deg_bound, degree > C
    (split rows), F in {1, 100, 2048}, and merged batched slabs with
@@ -36,26 +36,33 @@ Phases (any failure exits non-zero and prints no result line):
    bounds it), K2 on the 25m graph at F=2048, each beside its plain version,
    ``torch.sparse.mm`` on the same A and X (a yardstick the port never
    calls) and the memory bound;
-8. K4, the grouped GEMM, against its plain version on edge cases (an
-   expert with no rows, a single expert, trailing clipped blocks, m_tile
-   8/16/128/160, K and N not multiples of 4, fp32 and bf16 x and w in every
-   combination; integer inputs exact, float inputs within
-   ``(K+1) * 2**-24 * (|x| @ |w|)`` of the fp64 product), then exact on
-   integers at dbrx-132b's full wi and wo widths, at 144 and 20 row blocks
-   (the two token counts of phase 9);
+8. K4, the grouped GEMM, against its plain version on edge cases, each
+   case asserting which of K4's two instances ran it. The CUDA-core
+   (``simt``) instance: an expert with no rows, a single expert, trailing
+   clipped blocks, m_tile 8/16/128/160, K and N not multiples of 4, fp32
+   and bf16 x and w in every combination. The tensor-core (``wgmma``)
+   instance, bf16 x and w: the same block structures at m_tile
+   64/128/192/256, K 512 and 520, N 256 and 264, and NaN/Inf in the weights
+   of the experts beside the one multiplied. Integer inputs exact, float
+   inputs within ``(K+1) * 2**-24 * (|x| @ |w|)`` of the fp64 product.
+   Then ``wgmma`` exact on integers at dbrx-132b's full wi and wo widths,
+   at 144 and 20 row blocks (the two token counts of phase 9);
 9. slice C1's path: ``moe_block`` at dbrx-132b's full width (d_model 6144,
    d_ff 10752, 16 experts, top-4) through K4, weights from ``init_moe``
    (router fp32, experts bf16): {4,096 tokens, 128 tokens} x {balanced,
-   skewed} routing and one fp32 run. K4 launches: 3 per call. In each case
-   the three products (wi, wg, wo), rebuilt from the dispatch, are each
-   held against the plain version on the same operands
+   skewed} routing and one fp32 run. K4 launches: 3 per call, the 12 of
+   the bf16 calls through ``wgmma``, the fp32 call's 3 through ``simt``.
+   In each case the three products (wi, wg, wo), rebuilt from the
+   dispatch, are each held against the plain version on the same operands
    (``k4_pair_check``), and the outputs of K4's path and of the twin
    against an fp64 oracle on a sample of 256 tokens (bound in
    ``moe_oracle``);
-10. K4 times at 4,096 tokens (each GEMM in bf16, wi in fp32, the whole
-   ``moe_block``, the plain version, ``torch._grouped_mm`` as the library
-   yardstick) beside the bound; then the ``{"kernels": [...]}`` line, the
-   card line, and the ``{"ok": true, ...}`` line last.
+10. K4 times at 4,096 tokens (each GEMM in bf16 through ``wgmma``, wi
+   through ``simt`` on the same bf16 operands and with fp32 operands, the
+   plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
+   tokens (each GEMM, bound by the weights' bytes), each beside its bound,
+   and the whole ``moe_block`` at both; then the ``{"kernels": [...]}``
+   line, the card line, and the ``{"ok": true, ...}`` line last.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -168,9 +175,9 @@ def phase_build():
         log(f"{name}: {os.path.relpath(path, ROOT)}")
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "smem",
-                                       "Compiling")):
+                                       "Compiling", "warning")):
                 log(f"ptxas: {line.strip()}")
-        if name not in smem_calls:          # K4: static shared memory only
+        if name not in smem_calls:          # K4: one fixed ring, no query
             continue
         fn_name, args = smem_calls[name]
         fn = getattr(ctypes.CDLL(str(path)), fn_name)
@@ -891,8 +898,23 @@ def gmm_oracle(torch, x, w, be, m_tile):
     return out, mag
 
 
+# the wgmma instance's edge cases: rows per expert in blocks, trailing
+# clipped blocks; each at m_tile 64, 128, 192 and 256
+K4_WGMMA_CASES = {
+    "empty_expert": ([2, 0, 1, 3], 0),
+    "single_expert": ([3], 0),
+    "trailing_blocks": ([1, 2, 0], 3),
+}
+
+
 def k4_case(torch, dev, gen, case, K, N, xd, wd, integer):
     blocks, trailing, m_tile = K4_CASES[case]
+    return k4_blocks(torch, dev, gen, blocks, trailing, m_tile, K, N, xd, wd,
+                     integer)
+
+
+def k4_blocks(torch, dev, gen, blocks, trailing, m_tile, K, N, xd, wd,
+              integer):
     E = len(blocks)
     be = torch.cat([torch.arange(E, device=dev).repeat_interleave(
         torch.tensor(blocks, device=dev)),
@@ -908,28 +930,60 @@ def k4_case(torch, dev, gen, case, K, N, xd, wd, integer):
     return x.to(xd), w.to(wd), be, m_tile
 
 
+def k4_on(torch, instance, x, w, be, m_tile, **tiles):
+    """K4 through its public wrapper, checking that ``instance`` ran it."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    before = grouped_matmul.launches_by_instance[instance]
+    got = grouped_matmul(x, w, be, m_tile=m_tile, **tiles)
+    if grouped_matmul.launches_by_instance[instance] != before + 1:
+        raise AssertionError(f"K4 on {tuple(x.shape)} {x.dtype} x "
+                             f"{tuple(w.shape)} {w.dtype}, m_tile {m_tile}: "
+                             f"not launched as {instance}")
+    return got
+
+
+def k4_float_case(torch, label, instance, x, w, be, mt, **tiles):
+    """K4 and the plain version each within (K+1) u (|x| @ |w|) of the
+    fp64 product; returns (max |K4 - plain|, max error of K4 / bound)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
+    K = x.shape[1]
+    got = k4_on(torch, instance, x, w, be, mt, **tiles)
+    plain = grouped_matmul_plain(x, w, be, mt)
+    want, mag = gmm_oracle(torch, x, w, be, mt)
+    bound = (K + 1) * U * mag
+    check_close(f"K4 {label} vs fp64", got, want, bound)
+    check_close(f"plain {label} vs fp64", plain, want, bound)
+    share = float(((got.double() - want).abs() / bound.clamp_min(1e-300))
+                  .max())
+    return float((got - plain).abs().max()), share
+
+
 def phase_k4_cases(torch, dev, arch="dbrx-132b", n_blocks=(144, 20)):
-    """K4 against its plain version on edge cases (an expert with no rows,
-    a single expert, trailing clipped blocks, m_tile 8/16/128/160, K and N
-    not multiples of 4), every combination of fp32 and bf16 x and w:
-    integer inputs exact; float inputs with K4 and the plain version each
-    within (K+1) u (|x| @ |w|) of the fp64 product. Then K4 exact on the
-    wi and wo products at ``arch``'s full width, integers |x|, |w| <= 2,
-    bf16, for each of ``n_blocks`` balanced row blocks (every sum stays
-    below 4 K <= 2**24). Returns max |K4 - plain| over the float cases."""
+    """K4 against its plain version on edge cases, each asserting the
+    instance that ran it. The simt instance: an expert with no rows, a
+    single expert, trailing clipped blocks, m_tile 8/16/128/160, K and N
+    not multiples of 4, every combination of fp32 and bf16 x and w. The
+    wgmma instance (bf16 x and w): the same block structures at m_tile
+    64/128/192/256, K 512 and 520 (a ragged last K tile), N 256 and 264 (a
+    ragged last column tile), and NaN/Inf in the weights of the experts
+    beside the one multiplied. Integer inputs exact; float inputs with K4
+    and the plain version each within (K+1) u (|x| @ |w|) of the fp64
+    product. Then K4 (wgmma) exact on the wi and wo products at ``arch``'s
+    full width, integers |x|, |w| <= 2, bf16, for each of ``n_blocks``
+    balanced row blocks (every sum stays below 4 K <= 2**24). Returns max
+    |K4 - plain| over the float cases."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
-                                                    grouped_matmul_plain)
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
     gen = torch.Generator(device=dev).manual_seed(11)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    worst, n_cases = 0.0, 0
+    worst, n_cases, share = 0.0, 0, 0.0
     for case in K4_CASES:
         for xn, xd in dtypes.items():
             for wn, wd in dtypes.items():
                 K, N = 99, 301
                 x, w, be, mt = k4_case(torch, dev, gen, case, K, N, xd, wd,
                                        True)
-                got = grouped_matmul(x, w, be, m_tile=mt, k_tile=K, n_tile=N)
+                got = k4_on(torch, "simt", x, w, be, mt, k_tile=K, n_tile=N)
                 if not torch.equal(got, grouped_matmul_plain(x, w, be, mt)):
                     raise AssertionError(f"K4 {case} x {xn} w {wn}: differs "
                                          f"from its plain version on integer "
@@ -937,19 +991,49 @@ def phase_k4_cases(torch, dev, arch="dbrx-132b", n_blocks=(144, 20)):
                 K, N = 512, 258
                 x, w, be, mt = k4_case(torch, dev, gen, case, K, N, xd, wd,
                                        False)
-                got = grouped_matmul(x, w, be, m_tile=mt, n_tile=N)
-                plain = grouped_matmul_plain(x, w, be, mt)
-                want, mag = gmm_oracle(torch, x, w, be, mt)
-                bound = (K + 1) * U * mag
-                check_close(f"K4 {case} x {xn} w {wn} vs fp64", got, want,
-                            bound)
-                check_close(f"plain {case} x {xn} w {wn} vs fp64", plain,
-                            want, bound)
-                worst = max(worst, float((got - plain).abs().max()))
+                err, sh = k4_float_case(torch, f"{case} x {xn} w {wn}",
+                                        "simt", x, w, be, mt, n_tile=N)
+                worst, share = max(worst, err), max(share, sh)
                 n_cases += 2
-    log(f"K4 == plain on {n_cases // 2} integer cases; {n_cases // 2} float "
-        f"cases within (K+1) u (|x| @ |w|) of fp64, max |K4 - plain| "
-        f"{worst:.3e}")
+    log(f"K4 simt == plain on {n_cases // 2} integer cases; {n_cases // 2} "
+        f"float cases within (K+1) u (|x| @ |w|) of fp64 (at most "
+        f"{share:.4f} of it), max |K4 - plain| {worst:.3e}")
+    bf = torch.bfloat16
+    n_int = n_float = 0
+    share = 0.0
+    for case, (blocks, trailing) in K4_WGMMA_CASES.items():
+        for mt in (64, 128, 192, 256):
+            for K, N in ((512, 256), (520, 264)):
+                label = f"wgmma {case} m_tile {mt} K {K} N {N}"
+                x, w, be, _ = k4_blocks(torch, dev, gen, blocks, trailing, mt,
+                                        K, N, bf, bf, True)
+                got = k4_on(torch, "wgmma", x, w, be, mt, k_tile=K, n_tile=N)
+                if not torch.equal(got, grouped_matmul_plain(x, w, be, mt)):
+                    raise AssertionError(f"K4 {label}: differs from its "
+                                         f"plain version on integer inputs")
+                x, w, be, _ = k4_blocks(torch, dev, gen, blocks, trailing, mt,
+                                        K, N, bf, bf, False)
+                err, sh = k4_float_case(torch, label, "wgmma", x, w, be, mt,
+                                        k_tile=K, n_tile=N)
+                worst, share = max(worst, err), max(share, sh)
+                n_int, n_float = n_int + 1, n_float + 1
+    for mt in (64, 128):
+        for poison in (float("nan"), float("inf")):
+            x, w, be, _ = k4_blocks(torch, dev, gen, [0, 3, 0], 0, mt, 520,
+                                    264, bf, bf, True)
+            w[0] = poison
+            w[2] = poison
+            got = k4_on(torch, "wgmma", x, w, be, mt, k_tile=520, n_tile=264)
+            if not (bool(torch.isfinite(got).all())
+                    and torch.equal(got, x.float() @ w[1].float())):
+                raise AssertionError(f"K4 wgmma, m_tile {mt}: {poison} in "
+                                     f"the weights of experts 0 and 2 "
+                                     f"reached expert 1's product")
+            n_int += 1
+    log(f"K4 wgmma == plain on {n_int} integer cases (4 with NaN/Inf in the "
+        f"neighbouring experts' weights); {n_float} float cases within "
+        f"(K+1) u (|x| @ |w|) of fp64 (at most {share:.4f} of it); max "
+        f"|K4 - plain| over all float cases {worst:.3e}")
 
     cfg = get_config(arch)
     E, D, FF = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -960,14 +1044,14 @@ def phase_k4_cases(torch, dev, arch="dbrx-132b", n_blocks=(144, 20)):
             be = (torch.arange(nb, device=dev) * E // nb).to(torch.int32)
             x = torch.randint(-2, 3, (nb * 128, K), generator=gen,
                               device=dev).to(torch.bfloat16)
-            got = grouped_matmul(x, w, be)
+            got = k4_on(torch, "wgmma", x, w, be, 128)
             want = grouped_matmul_plain(x, w, be)
             if not torch.equal(got, want):
                 raise AssertionError(f"K4 at {arch}'s {prod} width "
                                      f"({nb * 128} x {K} @ {E} x {K} x {N},"
                                      f" integers) is not exact")
-            log(f"K4 exact at {arch}'s {prod} width on integers: {nb * 128} "
-                f"x {K} @ [{E}, {K}, {N}] bf16, max |out| "
+            log(f"K4 wgmma exact at {arch}'s {prod} width on integers: "
+                f"{nb * 128} x {K} @ [{E}, {K}, {N}] bf16, max |out| "
                 f"{float(want.abs().max()):.0f}")
             del got, want, x
         del w
@@ -1111,6 +1195,7 @@ def phase_moe(torch, dev, arch="dbrx-132b", tokens=((4, 1024), (128, 1)),
     runs.append((f"{tokens[0][0] * tokens[0][1]} tokens balanced fp32", p32,
                  x32))
     grouped_matmul.launches = 0            # main path starts here
+    grouped_matmul.launches_by_instance = {"wgmma": 0, "simt": 0}
     t_main = time.perf_counter()
     outs = []
     for label, params, x in runs:
@@ -1121,12 +1206,20 @@ def phase_moe(torch, dev, arch="dbrx-132b", tokens=((4, 1024), (128, 1)),
         torch.cuda.synchronize()
     t_main = time.perf_counter() - t_main
     launches = grouped_matmul.launches     # main path ends here
+    by_instance = dict(grouped_matmul.launches_by_instance)
     per_call = [n for _, _, n in outs]
     log(f"moe_block main path: {len(runs)} calls in {t_main:.2f}s, K4 "
-        f"launches {launches} ({per_call} per call)")
+        f"launches {launches} ({per_call} per call; by instance "
+        f"{by_instance})")
     if launches != 3 * len(runs) or any(n != 3 for n in per_call):
         raise AssertionError(f"K4 launches {per_call} per moe_block call, "
                              f"want 3 each")
+    # every bf16 call runs on the tensor cores, the fp32 one on the CUDA
+    # cores
+    want = {"wgmma": 3 * (len(runs) - 1), "simt": 3}
+    if by_instance != want:
+        raise AssertionError(f"K4 launches by instance {by_instance}, want "
+                             f"{want}")
 
     sgen = torch.Generator().manual_seed(2)
     metas = []
@@ -1167,7 +1260,8 @@ def phase_moe(torch, dev, arch="dbrx-132b", tokens=((4, 1024), (128, 1)),
             f"max |K4 path - twin| "
             f"{float((y.float() - y_t.float()).abs().max()):.3e}")
         del y_t
-    return p, p32, xs, x32, metas[0], launches
+    # the balanced runs' dispatch at each token shape, for the timing phase
+    return p, p32, xs, x32, metas[0:2 * len(tokens):2], launches
 
 
 def gmm_bound(M, K, N, n_used, x_bytes, w_bytes, peak, nb):
@@ -1182,19 +1276,44 @@ def gmm_bound(M, K, N, n_used, x_bytes, w_bytes, peak, nb):
             "operations" if ops_ms >= bytes_ms else "bytes", flops, moved)
 
 
-def phase_timing_k4(torch, p, p32, xs_by_shape, x32, meta, launches,
+def k4_c_launch(torch, lib, instance, a, w, be, m_tile):
+    """K4 through its C interface with the instance (0 simt, 1 wgmma)
+    chosen here; the wrapper picks it from the operands. Not counted as a
+    launch of the main path."""
+    M, K = a.shape
+    E, _, N = w.shape
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    err = lib.grouped_matmul_launch(
+        a.data_ptr(), w.data_ptr(), be.data_ptr(), out.data_ptr(),
+        int(a.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), E,
+        M // m_tile, m_tile, K, N, instance,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K4 launch (instance {instance}) failed: "
+                           f"{lib.grouped_matmul_error_string(err).decode()}")
+    return out
+
+
+def phase_timing_k4(torch, p, p32, xs_by_shape, x32, metas, launches,
                     float_err, reps=10, reps_f32=3):
-    """K4 at the first token shape of phase_moe (balanced): each of the
-    three GEMMs in bf16, wi with fp32 operands, the whole moe_block, the
-    plain version of wi, and torch._grouped_mm (bf16 in and out; a
-    yardstick the port never calls) on the same bf16 operands; then the
-    whole moe_block at every other token shape. K4 is timed through the
+    """K4 at the token shapes of phase_moe (balanced). At the first (the
+    prefill chunk): each of the three GEMMs in bf16 (wgmma), the wi product
+    through the simt instance on the same bf16 operands and with fp32
+    operands, the plain version of wi, and torch._grouped_mm (bf16 in and
+    out; a yardstick the port never calls). Every timed wi output is held
+    against the plain version within the pair bound of k4_pair_check. At
+    the second (a decode step): the three GEMMs beside their bound. Then
+    the whole moe_block at every token shape. K4 is timed through the
     entry moe_block uses, which skips the public wrapper's expert-id range
     check and its device sync."""
-    x = next(iter(xs_by_shape.values()))
     from repro_torch.kernels.grouped_matmul import (
-        grouped_matmul_in_range as grouped_matmul, grouped_matmul_plain)
+        grouped_matmul_in_range as grouped_matmul, grouped_matmul_plain,
+        load_grouped_matmul)
     from repro_torch.models.moe import moe_block
+    lib = load_grouped_matmul()
+    shapes = list(xs_by_shape)
+    x = xs_by_shape[shapes[0]]
+    meta = metas[0]
     D = x.shape[-1]
     E, _, FF = p["wi"].shape
     k = meta["ids"].shape[1]
@@ -1202,6 +1321,16 @@ def phase_timing_k4(torch, p, p32, xs_by_shape, x32, meta, launches,
     m_tile = M // be.numel()
     xs = dispatched_rows(torch, x, meta)
     xs32 = dispatched_rows(torch, x32, meta)
+    plain = grouped_matmul_plain(xs, p["wi"], be, m_tile)
+    pair = grouped_matmul_plain(xs.abs(), p["wi"].abs(), be, m_tile).double()
+    pair *= 2 * (D + 1) * U / (1 - (D + 1) * U)
+    held = {}
+
+    def hold(label, got):
+        check_close(f"K4 {label} vs plain", got, plain, pair)
+        held[label] = float(((got.double() - plain).abs()
+                             / pair.clamp_min(1e-300)).max())
+
     h = grouped_matmul(xs, p["wi"], be).to(x.dtype)
     g = grouped_matmul(xs, p["wg"], be).to(x.dtype)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
@@ -1212,33 +1341,29 @@ def phase_timing_k4(torch, p, p32, xs_by_shape, x32, meta, launches,
     for name, (a, w) in gemms.items():
         grouped_matmul(a, w, be)
         ms[name] = cuda_ms(lambda a=a, w=w: grouped_matmul(a, w, be), reps)
+    hold("wi wgmma", grouped_matmul(xs, p["wi"], be))
+    simt = lambda: k4_c_launch(torch, lib, 0, xs, p["wi"], be,  # noqa: E731
+                               m_tile)
+    hold("wi simt", simt())
+    ms["wi simt"] = cuda_ms(simt, reps_f32)
     grouped_matmul(xs32, p32["wi"], be)
     ms["wi fp32"] = cuda_ms(lambda: grouped_matmul(xs32, p32["wi"], be),
                             reps_f32)
     ms["wi again"] = cuda_ms(lambda: grouped_matmul(xs, p["wi"], be), reps)
-    moe_block(p, x, top_k=k, n_experts=E)
-    ms["moe_block"] = cuda_ms(lambda: moe_block(p, x, top_k=k, n_experts=E),
-                              3)
-    for bt, xb in list(xs_by_shape.items())[1:]:
-        moe_block(p, xb, top_k=k, n_experts=E)
-        t = cuda_ms(lambda xb=xb: moe_block(p, xb, top_k=k, n_experts=E),
-                    reps)
-        log(f"whole moe_block at {bt[0] * bt[1]} tokens (balanced): "
-            f"{t:.3f} ms; reading the {E} experts' bf16 weights once takes "
-            f"{3 * p['wi'].numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
-            f"the memory rate")
-    grouped_matmul_plain(xs, p["wi"], be)
-    ms["plain"] = cuda_ms(lambda: grouped_matmul_plain(xs, p["wi"], be), 3)
+    ms["plain"] = cuda_ms(
+        lambda: grouped_matmul_plain(xs, p["wi"], be, m_tile), 3)
+    del plain, pair
     offs = torch.cumsum(-(-meta["counts"] // m_tile) * m_tile, 0).to(
         torch.int32)
     if hasattr(torch, "_grouped_mm"):
-        lib = lambda: torch._grouped_mm(xs, p["wi"], offs=offs)  # noqa: E731
-        got, ref = lib(), grouped_matmul(xs, p["wi"], be)
+        lib_mm = lambda: torch._grouped_mm(  # noqa: E731
+            xs, p["wi"], offs=offs)
+        got, ref = lib_mm(), grouped_matmul(xs, p["wi"], be)
         rows = int(offs[-1])
         lib_err = float((got[:rows].float() - ref[:rows]).abs().max()
                         / ref[:rows].abs().max())
         del got, ref
-        library_ms = cuda_ms(lib, reps)
+        library_ms = cuda_ms(lib_mm, reps)
         log(f"torch._grouped_mm (bf16 output, the {rows} rows the experts "
             f"cover; the {M - rows} trailing rows skipped): {library_ms:.3f}"
             f" ms, max |lib - K4| / max|K4| {lib_err:.2e}")
@@ -1249,17 +1374,56 @@ def phase_timing_k4(torch, p, p32, xs_by_shape, x32, meta, launches,
     bounds = {}
     for name, (a, w) in gemms.items():
         K, N = w.shape[1], w.shape[2]
-        bounds[name] = gmm_bound(M, K, N, n_used, 2, 2, BF16_FLOPS, be.numel())
+        bounds[name] = gmm_bound(M, K, N, n_used, 2, 2, BF16_FLOPS,
+                                 be.numel())
+    bounds["wi simt"] = bounds["wi"]
     bounds["wi fp32"] = gmm_bound(M, D, FF, n_used, 4, 4, FP32_FLOPS,
                                   be.numel())
     for name, (b_ms, b_by, flops, moved) in bounds.items():
-        log(f"K4 {name}: {ms[name]:.3f} ms, {flops / ms[name] / 1e9:.2f} "
-            f"TFLOP/s; bound {b_ms:.3f} ms by {b_by} ({flops / 1e12:.3f} "
-            f"TFLOP, {moved / 1e9:.3f} GB); {b_ms / ms[name] * 100:.2f}% of "
-            f"the bound")
-    log(f"K4 wi again {ms['wi again']:.3f} ms; whole moe_block (3 K4 "
-        f"launches + dispatch + combine) {ms['moe_block']:.3f} ms; plain "
-        f"version of wi (fp32 cuBLAS per expert run) {ms['plain']:.3f} ms")
+        log(f"K4 {name} at {M} rows: {ms[name]:.3f} ms, "
+            f"{flops / ms[name] / 1e9:.2f} TFLOP/s; bound {b_ms:.3f} ms by "
+            f"{b_by} ({flops / 1e12:.3f} TFLOP, {moved / 1e9:.3f} GB); "
+            f"{b_ms / ms[name] * 100:.2f}% of the bound")
+    log("K4 wi, max |K4 - plain| as a share of the pair bound: " + ", ".join(
+        f"{label} {share:.3e}" for label, share in held.items()))
+    log(f"K4 wi again {ms['wi again']:.3f} ms; wgmma "
+        f"{ms['wi simt'] / ms['wi']:.1f}x faster than simt on the same bf16 "
+        f"operands; plain version of wi (fp32 cuBLAS per expert run) "
+        f"{ms['plain']:.3f} ms")
+    del xs, xs32, h
+
+    for bt, meta_d in zip(shapes[1:], metas[1:]):
+        xd = xs_by_shape[bt]
+        be_d, M_d = meta_d["block_expert"], meta_d["M"]
+        a_d = dispatched_rows(torch, xd, meta_d)
+        h_d = grouped_matmul(a_d, p["wi"], be_d).to(xd.dtype)
+        g_d = grouped_matmul(a_d, p["wg"], be_d).to(xd.dtype)
+        h_d = torch.nn.functional.silu(g_d.float()).to(xd.dtype) * h_d
+        del g_d
+        used = int((meta_d["counts"] > 0).sum())
+        live = int((-(-meta_d["counts"] // m_tile)).sum())
+        for name, a in (("wi", a_d), ("wg", a_d), ("wo", h_d)):
+            w = p[name]
+            grouped_matmul(a, w, be_d)
+            t = cuda_ms(lambda a=a, w=w: grouped_matmul(a, w, be_d), reps)
+            b_ms, b_by, fl, moved = gmm_bound(M_d, w.shape[1], w.shape[2],
+                                              used, 2, 2, BF16_FLOPS,
+                                              be_d.numel())
+            log(f"K4 {name} at {bt[0] * bt[1]} tokens ({M_d} rows, "
+                f"{be_d.numel()} blocks, {live} live, {used} experts): "
+                f"{t:.3f} ms, {fl / t / 1e9:.2f} TFLOP/s, "
+                f"{moved / t / 1e9:.3f} TB/s; bound {b_ms:.3f} ms by {b_by} "
+                f"({moved / 1e9:.3f} GB); {b_ms / t * 100:.2f}% of the bound")
+        del a_d, h_d
+    for bt in shapes:
+        xb = xs_by_shape[bt]
+        moe_block(p, xb, top_k=k, n_experts=E)
+        t = cuda_ms(lambda xb=xb: moe_block(p, xb, top_k=k, n_experts=E),
+                    reps)
+        log(f"whole moe_block at {bt[0] * bt[1]} tokens (balanced): "
+            f"{t:.3f} ms; reading the {E} experts' bf16 weights once takes "
+            f"{3 * p['wi'].numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"the memory rate")
     return {"name": "grouped_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/grouped_matmul.py:33",
@@ -1297,8 +1461,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()                # the GCN phases' memory goes
     k4_err = phase_k4_cases(torch, dev)
-    p, p32, xs, x32, meta, k4_launches = phase_moe(torch, dev)
-    k4 = phase_timing_k4(torch, p, p32, xs, x32, meta, k4_launches, k4_err)
+    p, p32, xs, x32, metas, k4_launches = phase_moe(torch, dev)
+    k4 = phase_timing_k4(torch, p, p32, xs, x32, metas, k4_launches, k4_err)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t0:.1f}s")
     records = [k1, k2, k3, k4]

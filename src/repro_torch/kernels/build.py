@@ -5,7 +5,10 @@ It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, where
 ``<hash>`` covers the source and every ``csrc/*.cuh`` it may include, and
 loaded with ``ctypes``. ``build_all`` compiles every library at once, one
-``nvcc`` process per source.
+``nvcc`` process per source. No library links ``-lcuda``: K4 encodes its
+tensor maps with ``cuTensorMapEncodeTiled`` of the CUDA driver API, which
+it looks up at run time through the CUDA runtime
+(``cudaGetDriverEntryPointByVersion``).
 """
 from __future__ import annotations
 

@@ -12,19 +12,25 @@ Algorithm 2 gives the SpMM.
 K4 (``csrc/grouped_matmul.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.grouped_matmul._gmm_kernel``
 (``src/repro/kernels/grouped_matmul.py:33``), whose weight BlockSpec reads
-the scalar-prefetched block expert ids. On the card one CTA per (row block,
-128-column output tile) reads its block's expert id once and takes its
-weight pointer from it, stages x and w tiles through shared memory as fp32
-and accumulates each output with fmaf over K in order. x and w may each be
-fp32 or bf16; the output is fp32.
+the scalar-prefetched block expert ids. On the card each CTA reads its
+block's expert id once and takes the expert's weights from it. K4 has two
+instances, chosen by ``_instance`` from the operands' dtypes, shapes,
+``m_tile`` and alignment alone, before the launch:
 
-What bounds it on an H100 is operations at the MoE shapes (the wi product
-of dbrx-132b at 4,096 tokens is 2.435 TFLOP against 3.1 GB of traffic).
-When both operands are bf16 every product is exact in fp32, so a bf16
-tensor-core kernel with fp32 accumulation computes the reference's function,
-differing only in summation order: its bound is the 989 TFLOP/s bf16
-tensor-core rate, not the 67 TFLOP/s fp32 one. This first kernel runs on
-the CUDA cores; tensor cores are later work.
+* ``"wgmma"`` for bf16 x and w with K % 8 == 0, N % 8 == 0,
+  m_tile % 64 == 0 and 16-byte aligned bases (the MoE path at every
+  registered width): TMA loads into a shared-memory ring and ``wgmma``
+  tensor-core products with fp32 accumulators, CTAs ordered so that one
+  expert's row blocks share each weight tile in L2. A bf16 x bf16 product
+  is exact in fp32, so this computes the reference's function, in another
+  summation order; its bound is the 989 TFLOP/s bf16 tensor-core rate at
+  prefill and the weights' bytes at decode;
+* ``"simt"`` for every other input (fp32 or mixed operands, whose products
+  tensor cores would round; odd K or N; other m_tile): the CUDA cores,
+  staging x and w tiles through shared memory as fp32 and accumulating
+  each output with fmaf over K in order.
+
+The output is fp32 either way.
 
 The plain version is ``ops.grouped_matmul_blocked``'s math: a per-block
 weight pick and a dense fp32 product, taken here one run of consecutive
@@ -44,6 +50,7 @@ __all__ = ["grouped_matmul", "grouped_matmul_in_range",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID = 2**31 - 1
+_INSTANCES = {"simt": 0, "wgmma": 1}
 
 _launch_lock = threading.Lock()
 
@@ -136,6 +143,26 @@ def grouped_matmul(
 
 
 grouped_matmul.launches = 0   # K4 launches since the caller last reset it
+# the same launches by instance; a caller resets both
+grouped_matmul.launches_by_instance = {"wgmma": 0, "simt": 0}
+
+
+def _instance(x: torch.Tensor, w: torch.Tensor, m_tile: int) -> str:
+    """Which K4 instance takes these operands: ``"wgmma"`` (tensor cores)
+    when x and w are both bf16, K and N are multiples of 8 (TMA needs
+    16-byte row strides), ``m_tile`` is a multiple of 64 (a 64-row
+    warpgroup tile never spans two blocks), M fits TMA's int32 row
+    coordinate and both bases are 16-byte aligned; else ``"simt"``. A
+    function of dtypes, shapes, m_tile and alignment only: never of a
+    failed build or launch."""
+    M, K = x.shape
+    N = w.shape[2]
+    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and K % 8 == 0 and N % 8 == 0 and m_tile % 64 == 0
+            and M < 2**31 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "simt"
 
 
 def grouped_matmul_in_range(x, w, block_expert, *, m_tile: int = 128,
@@ -157,36 +184,46 @@ def _run(x, w, block_expert, m_tile: int) -> torch.Tensor:
 def _declare(lib: ctypes.CDLL) -> None:
     lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
     lib.grouped_matmul_error_string.restype = ctypes.c_char_p
-    lib.grouped_matmul_cols_per_cta.argtypes = []
-    lib.grouped_matmul_cols_per_cta.restype = ctypes.c_int
+    lib.grouped_matmul_ctas.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_longlong]
+    lib.grouped_matmul_ctas.restype = ctypes.c_longlong
     lib.grouped_matmul_launch.argtypes = (
         [ctypes.c_void_p] * 4
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+           ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+        + [ctypes.c_int, ctypes.c_void_p])
     lib.grouped_matmul_launch.restype = ctypes.c_int
+
+
+def load_grouped_matmul() -> ctypes.CDLL:
+    """K4's library, built on first use, with its C interface declared."""
+    return load_kernel("grouped_matmul", _declare)
 
 
 def _launch(x, w, block_expert, m_tile: int) -> torch.Tensor:
     M, K = x.shape
-    N = w.shape[2]
+    E, _, N = w.shape
     nb = M // m_tile
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0:
         return out
-    lib = load_kernel("grouped_matmul", _declare)
-    cols = lib.grouped_matmul_cols_per_cta()
-    if nb * -(-N // cols) > _MAX_GRID:
-        raise ValueError(f"K4: {nb} row blocks x {-(-N // cols)} column "
-                         f"tiles exceed the grid limit")
+    instance = _instance(x, w, m_tile)
+    lib = load_grouped_matmul()
+    n_ctas = lib.grouped_matmul_ctas(_INSTANCES[instance], nb, m_tile, N)
+    if n_ctas > _MAX_GRID:
+        raise ValueError(f"K4 ({instance}): {n_ctas} CTAs for {nb} row "
+                         f"blocks exceed the grid limit")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.grouped_matmul_launch(
             x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
             out.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(w.dtype == torch.bfloat16), nb, m_tile, K, N, stream)
+            int(w.dtype == torch.bfloat16), E, nb, m_tile, K, N,
+            _INSTANCES[instance], stream)
     if err != 0:
-        raise RuntimeError(f"K4 launch failed: "
+        raise RuntimeError(f"K4 ({instance}) launch failed: "
                            f"{lib.grouped_matmul_error_string(err).decode()}")
     with _launch_lock:
         grouped_matmul.launches += 1
+        grouped_matmul.launches_by_instance[instance] += 1
     return out

@@ -19,7 +19,8 @@ from repro.kernels.grouped_matmul import grouped_matmul as ref_gmm
 from repro.kernels.ops import grouped_matmul_blocked as ref_blocked
 from repro.kernels.ref import grouped_matmul_ref as ref_oracle
 from repro_torch.kernels import ops as port_ops
-from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+from repro_torch.kernels.grouped_matmul import (_instance, grouped_matmul,
+                                                grouped_matmul_in_range,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.ref import grouped_matmul_ref
 
@@ -203,3 +204,67 @@ def test_expert_ids_out_of_range_raise(bad):
         grouped_matmul(x, w, be, m_tile=16)
     with pytest.raises(ValueError, match="outside"):
         port_ops.grouped_matmul_pallas(x, w, be, m_tile=16)
+
+
+def _operands(xd, wd, K, N, mt, x_offset=0, w_offset=0):
+    """x [2 mt, K] and w [2, K, N] of the given dtypes; an offset of 1
+    makes the tensor a contiguous view that starts 2 or 4 bytes past a
+    16-byte boundary of its flat buffer."""
+    M = 2 * mt
+    xbuf = torch.zeros(x_offset + M * K, dtype=xd)
+    wbuf = torch.zeros(w_offset + 2 * K * N, dtype=wd)
+    x = xbuf[x_offset:].view(M, K)
+    w = wbuf[w_offset:].view(2, K, N)
+    assert x.data_ptr() % 16 == x_offset * x.element_size()
+    assert w.data_ptr() % 16 == w_offset * w.element_size()
+    return x, w
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("xd,wd,K,N,mt,x_off,w_off,want", [
+    (BF, BF, 512, 256, 128, 0, 0, "wgmma"),      # the MoE path's shapes
+    (BF, BF, 520, 264, 64, 0, 0, "wgmma"),       # ragged last K, N tiles
+    (BF, BF, 64, 96, 192, 0, 0, "wgmma"),
+    (BF, BF, 8, 8, 256, 0, 0, "wgmma"),
+    (F32, F32, 512, 256, 128, 0, 0, "simt"),     # tensor cores would round
+    (BF, F32, 512, 256, 128, 0, 0, "simt"),
+    (F32, BF, 512, 256, 128, 0, 0, "simt"),
+    (BF, BF, 516, 256, 128, 0, 0, "simt"),       # K % 8 == 4
+    (BF, BF, 99, 256, 128, 0, 0, "simt"),
+    (BF, BF, 512, 258, 128, 0, 0, "simt"),       # N % 8 == 2
+    (BF, BF, 512, 301, 128, 0, 0, "simt"),
+    (BF, BF, 512, 256, 16, 0, 0, "simt"),        # m_tile % 64 != 0
+    (BF, BF, 512, 256, 96, 0, 0, "simt"),
+    (BF, BF, 512, 256, 160, 0, 0, "simt"),
+    (BF, BF, 512, 256, 128, 1, 0, "simt"),       # x 2 bytes off 16
+    (BF, BF, 512, 256, 128, 0, 1, "simt"),       # w 2 bytes off 16
+])
+def test_instance_choice(xd, wd, K, N, mt, x_off, w_off, want):
+    """K4's instance is a pure function of dtypes, shapes, m_tile and
+    alignment: the wgmma instance takes bf16 x bf16 with K, N multiples of
+    8, m_tile a multiple of 64 and 16-byte aligned bases."""
+    x, w = _operands(xd, wd, K, N, mt, x_off, w_off)
+    assert _instance(x, w, mt) == want
+
+
+@pytest.mark.parametrize("xd,wd,mt", [(BF, BF, 64), (BF, BF, 16),
+                                      (F32, F32, 64)])
+def test_cpu_tensors_take_the_plain_version(xd, wd, mt):
+    """On CPU tensors neither instance launches, whichever ``_instance``
+    names: the result is the plain version's and no count moves."""
+    rng = np.random.default_rng(3)
+    E, K, N = 2, 64, 32
+    x = torch.from_numpy(rng.integers(-2, 3, (3 * mt, K)).astype(
+        np.float32)).to(xd)
+    w = torch.from_numpy(rng.integers(-2, 3, (E, K, N)).astype(
+        np.float32)).to(wd)
+    be = torch.tensor([0, 1, 1], dtype=torch.int32)
+    before = (grouped_matmul.launches,
+              dict(grouped_matmul.launches_by_instance))
+    for fn in (grouped_matmul, grouped_matmul_in_range):
+        assert torch.equal(fn(x, w, be, m_tile=mt),
+                           grouped_matmul_plain(x, w, be, mt))
+    assert (grouped_matmul.launches,
+            grouped_matmul.launches_by_instance) == before

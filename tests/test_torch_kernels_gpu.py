@@ -11,9 +11,11 @@ in fp32: each kernel must equal its plain version bit for bit. On
 normalized graphs two fp32 results may differ by twice the summation bound
 ``k * 2**-24 * (|A| @ |x|)``, ``k = min(deg, C) + ceil(deg / C) + 1`` per
 row, plus ``num_windows`` for K2. K4's sums of K products are each within
-``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order on
-the card, any order in the plain version), so the two differ by at most
-twice that; integer inputs keep every sum exact.
+``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order in
+the simt instance, the tensor cores' order in the wgmma instance, any
+order in the plain version), so the two differ by at most twice that;
+integer inputs with |x|, |w| <= 2 keep every partial sum below 2**24, so
+every sum is exact in any order. Each K4 case asserts which instance ran.
 """
 import numpy as np
 import pytest
@@ -27,7 +29,7 @@ from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
                                             spmm_block_slabs_windowed,
                                             spmm_block_slabs_windowed_plain)
 from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
-from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+from repro_torch.kernels.grouped_matmul import (_instance, grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
                                           spmm_block_slabs_hbm_plain)
@@ -198,6 +200,13 @@ K4_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 def _k4_inputs(case, K, N, xd, wd, integer, cuda, seed=0):
     blocks, trailing, m_tile = K4_CASES[case]
+    return _k4_blocks(blocks, trailing, m_tile, K, N, xd, wd, integer, cuda,
+                      seed)
+
+
+def _k4_blocks(blocks, trailing, m_tile, K, N, xd, wd, integer, cuda, seed):
+    """x, w and block_expert for ``blocks[e]`` row blocks of expert e, then
+    ``trailing`` zero-row blocks clipped to expert E-1."""
     E = len(blocks)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     be = torch.cat([torch.arange(E, device=cuda).repeat_interleave(
@@ -223,17 +232,26 @@ def test_k4_equals_plain_on_integer_inputs(cuda, case, xd, wd):
     K, N = 99, 301
     x, w, be, m_tile = _k4_inputs(case, K, N, xd, wd, True, cuda)
     before = grouped_matmul.launches
-    got = grouped_matmul(x, w, be, m_tile=m_tile, k_tile=K, n_tile=N)
+    got = _k4_on(x, w, be, m_tile, "simt", k_tile=K, n_tile=N)
     torch.cuda.synchronize()
     assert grouped_matmul.launches == before + 1
     assert torch.equal(got, grouped_matmul_plain(x, w, be, m_tile))
 
 
-def _k4_within_pair_bound(x, w, be, m_tile, **tiles):
+def _k4_on(x, w, be, m_tile, instance, **tiles):
+    """K4's output, asserting that ``instance`` launched it once."""
+    assert _instance(x, w, m_tile) == instance
+    before = grouped_matmul.launches_by_instance[instance]
+    got = grouped_matmul(x, w, be, m_tile=m_tile, **tiles)
+    assert grouped_matmul.launches_by_instance[instance] == before + 1
+    return got
+
+
+def _k4_within_pair_bound(x, w, be, m_tile, instance, **tiles):
     """K4's output, asserted within twice the summation bound of the plain
     version's on the same operands."""
     K = x.shape[1]
-    got = grouped_matmul(x, w, be, m_tile=m_tile, **tiles)
+    got = _k4_on(x, w, be, m_tile, instance, **tiles)
     want = grouped_matmul_plain(x, w, be, m_tile)
     mag = grouped_matmul_plain(x.abs(), w.abs(), be, m_tile).double()
     bound = 2 * (K + 1) * 2.0 ** -24 * mag
@@ -247,7 +265,51 @@ def _k4_within_pair_bound(x, w, be, m_tile, **tiles):
 def test_k4_float_inputs_within_summation_bound(cuda, case, xd, wd):
     K, N = 512, 258
     x, w, be, m_tile = _k4_inputs(case, K, N, xd, wd, False, cuda, seed=1)
-    _k4_within_pair_bound(x, w, be, m_tile, n_tile=N)
+    _k4_within_pair_bound(x, w, be, m_tile, "simt", n_tile=N)
+
+
+# The wgmma instance: rows per expert in blocks and trailing clipped blocks.
+K4_WGMMA_CASES = {
+    "empty_expert": ([2, 0, 1, 3], 0),
+    "single_expert": ([3], 0),
+    "trailing_blocks": ([1, 2, 0], 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_WGMMA_CASES))
+@pytest.mark.parametrize("m_tile", [64, 128, 192, 256])
+@pytest.mark.parametrize("K,N", [(512, 256), (520, 264)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_k4_wgmma_equals_plain(cuda, case, m_tile, K, N, integer):
+    """bf16 x bf16 through the tensor cores: exact on integers, within the
+    pair bound on floats. K = 520 ends in an 8-deep K tile and N = 264 in
+    an 8-wide column tile; m_tile 64 and 192 end blocks inside a 128-row
+    CTA tile."""
+    blocks, trailing = K4_WGMMA_CASES[case]
+    x, w, be, _ = _k4_blocks(blocks, trailing, m_tile, K, N, "bf16", "bf16",
+                             integer, cuda, seed=2)
+    if integer:
+        got = _k4_on(x, w, be, m_tile, "wgmma", k_tile=K, n_tile=N)
+        assert torch.equal(got, grouped_matmul_plain(x, w, be, m_tile))
+    else:
+        _k4_within_pair_bound(x, w, be, m_tile, "wgmma", k_tile=K, n_tile=N)
+
+
+@pytest.mark.parametrize("m_tile", [64, 128])
+@pytest.mark.parametrize("poison", [float("nan"), float("inf")])
+def test_k4_wgmma_reads_only_its_experts_weights(cuda, m_tile, poison):
+    """Expert 1's blocks alone are multiplied while experts 0 and 2 hold
+    NaN or Inf. K = 520: the last K tile reaches 56 rows past expert 1's
+    weights, which a map over E * K rows would read from expert 2 and
+    0 * NaN would carry into the output. It must be finite and exact."""
+    x, w, be, _ = _k4_blocks([0, 3, 0], 0, m_tile, 520, 264, "bf16", "bf16",
+                             True, cuda, seed=3)
+    w[2] = poison
+    w[0] = poison
+    got = _k4_on(x, w, be, m_tile, "wgmma", k_tile=520, n_tile=264)
+    assert bool(torch.isfinite(got).all())
+    want = x.float() @ w[1].float()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("bad", [-1, 4])
@@ -261,27 +323,32 @@ def test_k4_refuses_expert_ids_out_of_range(cuda, bad):
     assert grouped_matmul.launches == before
 
 
-def test_moe_block_launches_k4_three_times(cuda):
+@pytest.mark.parametrize("m_tile,instance", [(16, "simt"), (64, "wgmma")])
+def test_moe_block_launches_k4_three_times(cuda, m_tile, instance):
     """K4 carries the three products of moe_block on the card (the twin
-    launches no kernel); each product, rebuilt from the dispatch, is within
-    the pair bound of its plain version on the same operands."""
+    launches no kernel), all three through the instance that m_tile picks
+    (d_model 64 and d_ff 96 are multiples of 8); each product, rebuilt from
+    the dispatch, is within the pair bound of its plain version on the same
+    operands."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     p = init_moe(gen, 64, 96, 4, dtype=torch.bfloat16, device=cuda)
     x = torch.randn((2, 40, 64), generator=gen, device=cuda).bfloat16()
     before = grouped_matmul.launches
-    y, aux = moe_block(p, x, top_k=2, n_experts=4, m_tile=16)
+    on = grouped_matmul.launches_by_instance[instance]
+    y, aux = moe_block(p, x, top_k=2, n_experts=4, m_tile=m_tile)
     assert grouped_matmul.launches == before + 3
-    y2, aux2 = moe_block(p, x, top_k=2, n_experts=4, m_tile=16,
+    assert grouped_matmul.launches_by_instance[instance] == on + 3
+    y2, aux2 = moe_block(p, x, top_k=2, n_experts=4, m_tile=m_tile,
                          use_pallas=False)
     assert grouped_matmul.launches == before + 3
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
     assert float(aux) == float(aux2)
     xt = x.reshape(-1, 64)
-    meta = block_dispatch(_route(p, xt, 2, True)[1], 4, 16)
+    meta = block_dispatch(_route(p, xt, 2, True)[1], 4, m_tile)
     xs = torch.zeros((meta["M"], 64), dtype=x.dtype, device=cuda)
     xs[meta["dst"]] = xt[meta["order"] // 2]
     be = meta["block_expert"]
-    h = _k4_within_pair_bound(xs, p["wi"], be, 16).to(x.dtype)
-    g = _k4_within_pair_bound(xs, p["wg"], be, 16).to(x.dtype)
+    h = _k4_within_pair_bound(xs, p["wi"], be, m_tile, instance).to(x.dtype)
+    g = _k4_within_pair_bound(xs, p["wg"], be, m_tile, instance).to(x.dtype)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
-    _k4_within_pair_bound(h, p["wo"], be, 16)
+    _k4_within_pair_bound(h, p["wo"], be, m_tile, instance)

@@ -3,6 +3,15 @@
 
     python3 chip_smoke.py
 
+K2 (``csrc/spmm_windowed.cu``) and K3 (``csrc/spmm_hbm.cu``) are one
+live-row gather pipeline (``csrc/slab_common.cuh``): a CTA per (block,
+feature tile), feature-tile-major over the grid, gathers one row
+segment per live slot into a shared-memory ring (a bulk copy per segment
+on mbarriers where F % 4 == 0 and X is 16-byte aligned, else 4-byte
+cp.async per thread), sums each local row's run in registers and adds it
+into the output with one fp32 RED; K3 walks the slots in slot order, K2
+by (local row, window, slot), adding window partials in window order.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card: name, power limit, torch and CUDA versions; TF32 is switched
@@ -10,12 +19,17 @@ Phases (any failure exits non-zero and prints no result line):
 2. build K1, K2, K3 and K4 (``src/repro_torch/csrc/spmm_accel.cu``,
    ``spmm_windowed.cu``, ``spmm_hbm.cu``, ``grouped_matmul.cu``) with nvcc
    for sm_90a, all four at once, and print ptxas' registers, shared memory
-   and spills, and each kernel's dynamic shared memory per CTA;
+   and spills, and each kernel's dynamic shared memory per CTA and the
+   CTAs one SM holds (K2 and K3 per gather instance; more than 2 each);
 3. each kernel against its plain PyTorch version on the card, in both
    partition modes: zero-degree rows, degree == deg_bound, degree > C
    (split rows), F in {1, 100, 2048}, and merged batched slabs with
-   all-zero padding blocks; K2 at 1, 2 and 4 row windows, with window
-   boundaries that cut blocks. Integer-valued graphs must match exactly;
+   all-zero padding blocks, also from an X view 4 bytes off a 16-byte
+   boundary; K2 at 1, 2 and 4 row windows, with window boundaries that cut
+   blocks. Integer-valued graphs must match exactly. K2's window order is
+   pinned by a row that sums to exactly 1 only in window order (0 in slot
+   order), held bit for bit against the plain version on the CPU; both
+   gather instances of K2 and K3 must have run;
 4. slice A's path: the Reddit and Arxiv analogues registered in one
    GraphServeEngine (backend ``accel``, K1), the 25m GCN (dims
    1024-2048x4-256, 256 classes) served layer by layer for 2 rounds, then
@@ -29,13 +43,17 @@ Phases (any failure exits non-zero and prints no result line):
    (windowed, 2 windows -> K2) and the ``tiny`` preset's graph alone
    (resident -> K1). Every answer is checked against the CSR oracle; the
    K1/K2/K3 launch counts of the phase must equal the engines' routed
-   counts, each at least 1; backend="pallas" on Reddit must raise
-   VmemBudgetError;
-7. kernel times (CUDA events): K1 and K3 per fused Reddit+Arxiv dispatch at
-   F=2048 (K3 also at other gather-stage heights, a diagnostic of what
-   bounds it), K2 on the 25m graph at F=2048, each beside its plain version,
-   ``torch.sparse.mm`` on the same A and X (a yardstick the port never
-   calls) and the memory bound;
+   counts (12/12/12), each at least 1, and every K2 and K3 launch of the
+   phase must have taken the ``bulk`` gather instance; backend="pallas"
+   on Reddit must raise VmemBudgetError;
+7. kernel times (CUDA events), in turns on one card: K1, K3, K1 again, the
+   plain version and ``torch.sparse.mm`` on the same A and X (a yardstick
+   the port never calls) per fused Reddit+Arxiv dispatch at F=2048, then
+   K1 diagnostics (other f_tiles, the hub row); K2, ``torch.sparse.mm``, K2
+   again and the plain version on the 25m graph at F=2048. Each beside the
+   memory bound and its rate of needed gather bytes (nnz * F * 4 / ms).
+   The K3 gather-stage sweep of earlier versions is gone with the C
+   interface it drove (PERF.md keeps its numbers);
 8. K4, the grouped GEMM, against its plain version on edge cases, each
    case asserting which of K4's two instances ran it. The CUDA-core
    (``simt``) instance: an expert with no rows, a single expert, trailing
@@ -158,33 +176,43 @@ def phase_card(torch):
 
 
 def phase_build():
-    """Build every kernel library at once and print what ptxas reports and
-    each kernel's dynamic shared memory per CTA at C=256, R=64, f_tile=128."""
-    import ctypes
-    from repro_torch.kernels.build import build_all
+    """Build every kernel library at once and print, per kernel, what ptxas
+    reports (registers, spills, static shared memory) and, at C=256, R=64,
+    f_tile=128, its dynamic shared memory per CTA and the CTAs one SM holds
+    (K2 and K3 for each gather instance)."""
+    from repro_torch.kernels import spmm_accel, spmm_hbm
+    from repro_torch.kernels.build import build_all, load_kernel
     t0 = time.perf_counter()
     built = build_all()
     log(f"K1, K2, K3, K4 built in parallel in "
         f"{time.perf_counter() - t0:.1f}s")
-    C, R, f_tile, rows = 256, 64, 128, 4096 // 128
-    smem_calls = {"spmm_accel": ("spmm_block_slabs_smem_bytes", (C, R, f_tile)),
-                  "spmm_windowed": ("spmm_windowed_smem_bytes",
-                                    (C, R, f_tile, rows)),
-                  "spmm_hbm": ("spmm_hbm_smem_bytes", (C, R, f_tile, rows))}
     for name, (path, report) in built.items():
         log(f"{name}: {os.path.relpath(path, ROOT)}")
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling", "warning")):
                 log(f"ptxas: {line.strip()}")
-        if name not in smem_calls:          # K4: one fixed ring, no query
-            continue
-        fn_name, args = smem_calls[name]
-        fn = getattr(ctypes.CDLL(str(path)), fn_name)
-        fn.argtypes = [ctypes.c_int] * len(args)
-        fn.restype = ctypes.c_longlong
-        log(f"{name}: dynamic shared memory per CTA at C={C}, R={R}, "
-            f"f_tile={f_tile}: {fn(*args)} bytes")
+    C, R, f_tile = 256, 64, 128
+    k1 = load_kernel("spmm_accel", spmm_accel._declare_k1)
+    log(f"K1 at C={C}, R={R}, f_tile={f_tile}: "
+        f"{k1.spmm_block_slabs_smem_bytes(C, R, f_tile)} B of dynamic shared "
+        f"memory per CTA, {k1.spmm_block_slabs_ctas_per_sm(C, R, f_tile)} "
+        f"CTAs per SM")
+    for kern, lib, prefix in (
+            ("K2", load_kernel("spmm_windowed", spmm_accel._declare_k2),
+             "spmm_windowed"),
+            ("K3", load_kernel("spmm_hbm", spmm_hbm._declare), "spmm_hbm")):
+        smem = getattr(lib, f"{prefix}_smem_bytes")(C, R, f_tile)
+        ctas = {inst: getattr(lib, f"{prefix}_ctas_per_sm")(
+                    C, R, f_tile, int(inst == "bulk"))
+                for inst in spmm_accel.GATHER_INSTANCES}
+        log(f"{kern} at C={C}, R={R}, f_tile={f_tile}: {smem} B of dynamic "
+            f"shared memory per CTA (no [R, f_tile] tile); CTAs per SM: "
+            + ", ".join(f"{i} {n}" for i, n in ctas.items()))
+        if min(ctas.values()) <= 2:
+            raise AssertionError(f"{kern}: {ctas} CTAs per SM")
+    log("K4: its source's fixed ring (kSmemBytes, 197,696 B) allows one "
+        "CTA per SM")
 
 
 def edge_case_graph(C, seed):
@@ -238,14 +266,30 @@ def windows_cutting_blocks(torch, slabs, window):
     return int((live.any(dim=1) & (lo != hi)).sum())
 
 
+def order_pinning_case(torch, dev, F):
+    """One block whose single row sums +1 (window 1), +2**24 (window 0) and
+    -2**24 (window 1), each times x = 1, with 4-row windows over 8 rows.
+    Window partials added in window order give exactly 1; the slots summed
+    in slot order give 0. Returns the kernel arguments and the window."""
+    colidx = torch.tensor([[5, 1, 6, 0]], dtype=torch.int32, device=dev)
+    values = torch.tensor([[1.0, 2.0 ** 24, -2.0 ** 24, 0.0]], device=dev)
+    rowloc = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    out_row = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    return (colidx, values, rowloc, out_row,
+            torch.ones((8, F), device=dev), 1), 4
+
+
 def phase_kernel_cases(torch, dev):
     """K1, K2 and K3 against their plain versions on ``dev``; returns each
     kernel's max abs error over the float cases."""
     from repro_torch.core.graph import gcn_normalize
     from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
     from repro_torch.data.graphs import make_power_law_graph
-    from repro_torch.kernels.spmm_accel import spmm_block_slabs_plain
+    from repro_torch.kernels.spmm_accel import (
+        spmm_block_slabs_plain, spmm_block_slabs_windowed,
+        spmm_block_slabs_windowed_plain)
     from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
 
     gen = torch.Generator(device=dev).manual_seed(7)
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
@@ -320,9 +364,30 @@ def phase_kernel_cases(torch, dev):
     for F in (1, 100, 2048):
         xi = torch.randint(-4, 5, (n_x, F), generator=gen, device=dev).float()
         run(f"merged F={F}", merged, n_out, xi, True)
+    # a view 4 bytes past a 16-byte boundary: K2 and K3 take cp_async
+    xu = torch.empty(n_x * 2048 + 1, device=dev)[1:].view(n_x, 2048)
+    xu.copy_(xi)
+    run("merged F=2048, unaligned x", merged, n_out, xu, True)
     log(f"K1, K2, K3 == plain: merged C={merged['C']} R={merged['R']}, "
         f"{b_total} live + {merged['colidx'].shape[0] - b_total} padding "
         f"blocks")
+    for F in (1, 100, 2048):
+        pin, window = order_pinning_case(torch, dev, F)
+        got = spmm_block_slabs_windowed(*pin, window_rows=window).cpu()
+        want = spmm_block_slabs_windowed_plain(
+            *[a.cpu() if torch.is_tensor(a) else a for a in pin], window)
+        if not (torch.equal(got, want) and bool((want == 1.0).all())):
+            raise AssertionError(f"K2 order pinning F={F}: got "
+                                 f"{got[0, :4].tolist()}, plain on the CPU "
+                                 f"{want[0, :4].tolist()} (window order: 1)")
+    by_instance = {k: dict(fn.launches_by_instance) for k, fn in
+                   (("K2", spmm_block_slabs_windowed),
+                    ("K3", spmm_block_slabs_hbm))}
+    log(f"K2 window order pinned (exactly 1.0 at F=1, 100, 2048); gather "
+        f"instances launched: {by_instance}")
+    if dev.type == "cuda" and min(n for c in by_instance.values()
+                                  for n in c.values()) < 1:
+        raise AssertionError(f"a gather instance never ran: {by_instance}")
     log(f"phase 3 ok: {n_cases} cases, integer cases exact, float max "
         f"|kernel - plain|: " + ", ".join(f"{k} {v:.3e}"
                                           for k, v in worst.items()))
@@ -523,7 +588,8 @@ def phase_routed(torch, dev, graphs, cache):
     from repro_torch.core.graph import gcn_normalize
     from repro_torch.data.graphs import make_power_law_graph
     from repro_torch.kernels.router import VmemBudgetError
-    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs,
                                                 spmm_block_slabs_windowed)
     from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
     from repro_torch.models.layers import dense_init
@@ -561,8 +627,11 @@ def phase_routed(torch, dev, graphs, cache):
     kernels = {"K1": spmm_block_slabs, "K2": spmm_block_slabs_windowed,
                "K3": spmm_block_slabs_hbm}
 
+    gathers = {k: kernels[k] for k in ("K2", "K3")}
     for fn in kernels.values():            # main path starts here
         fn.launches = 0
+    for fn in gathers.values():
+        fn.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
     t_main = time.perf_counter()
     for rnd in range(2):
         h = dict(feats)
@@ -600,6 +669,8 @@ def phase_routed(torch, dev, graphs, cache):
                                      f"{tuple(h[name].shape)}")
     t_main = time.perf_counter() - t_main
     launches = {k: fn.launches for k, fn in kernels.items()}  # path ends
+    by_instance = {k: dict(fn.launches_by_instance)
+                   for k, fn in gathers.items()}
     big, sm = big_engine.stats(), small_engine.stats()
     routed = {"K1": big["routed_resident"] + sm["routed_resident"],
               "K2": big["routed_windowed"] + sm["routed_windowed"],
@@ -611,6 +682,14 @@ def phase_routed(torch, dev, graphs, cache):
     if launches != routed or min(launches.values()) < 1:
         raise AssertionError(f"kernel launches {launches} differ from the "
                              f"routed dispatches {routed}")
+    # every routed X is a fresh contiguous product of width % 4 == 0 at
+    # f_tile 128, so every K2 and K3 launch of the path must be bulk
+    log(f"routed path: K2/K3 launches by gather instance {by_instance}")
+    for k, counts in by_instance.items():
+        if counts != {"bulk": launches[k], "cp_async": 0}:
+            raise AssertionError(f"{k}'s routed launches by instance "
+                                 f"{counts}: expected all {launches[k]} "
+                                 f"bulk")
     big_engine.close()
 
     forced = GraphServeEngine(device=dev, backend="pallas", cache=cache)
@@ -657,11 +736,13 @@ def bound_of(n_x, n_out, F, slabs, nnz):
 
 def phase_timing_k2(torch, small, engine, launches, float_err):
     """K2 on the 25m preset's graph at F=2048 (2 windows), against its plain
-    version, the library SpMM and the memory bound."""
+    version, the library SpMM and the memory bound; K3 on the same slabs
+    (one window: no sort) shows what K2's window order costs."""
     from repro_torch.kernels.router import route_spmm
     from repro_torch.kernels.spmm_accel import (spmm_block_slabs_plain,
                                                 spmm_block_slabs_windowed,
                                                 spmm_block_slabs_windowed_plain)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
     dev = torch.device("cuda")
     F = 2048
     g = small["25m"]
@@ -682,14 +763,18 @@ def phase_timing_k2(torch, small, engine, launches, float_err):
     kt = torch.as_tensor(k, dtype=torch.float64, device=dev)[:, None]
     err = check_close("25m F=2048 K2 vs plain", got, want, 2 * U * kt * mag)
     del mag, want
-    k2()
-    ms = cuda_ms(k2, 10)
-    plain_ms = cuda_ms(plain, 3)
     a_csr = sparse_csr(torch, [g], [0], plan.n_rows, g.n_cols, dev)
     lib = lambda: torch.sparse.mm(a_csr, x)           # noqa: E731
     lib_err = float((got[plan.inv_perm] - lib()).abs().max())
+    k2()
     lib()
+    ms = cuda_ms(k2, 10)                 # K2 and sparse.mm in turns
     library_ms = cuda_ms(lib, 10)
+    ms_again = cuda_ms(k2, 10)
+    plain_ms = cuda_ms(plain, 3)
+    k3 = lambda: spmm_block_slabs_hbm(*args)          # noqa: E731
+    k3()
+    k3_ms = cuda_ms(k3, 10)
     bound_ms, bound_by, moved, bytes_ms, ops_ms = bound_of(
         g.n_cols, plan.n_rows, F, s, g.nnz)
     log(f"K2 25m graph F={F}: {plan.num_blocks} blocks, {d.num_windows} "
@@ -697,8 +782,15 @@ def phase_timing_k2(torch, small, engine, launches, float_err):
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
         f"{library_ms:.3f} ms (max |K2 - sparse.mm| {lib_err:.2e}); bound "
         f"{bound_ms:.3f} ms ({moved / 1e9:.4f} GB, {bytes_ms:.3f} ms; "
-        f"{2.0 * g.nnz * F / 1e9:.2f} GFLOP, {ops_ms:.3f} ms); K2 at "
-        f"{bound_ms / ms * 100:.2f}% of the bound")
+        f"{2.0 * g.nnz * F / 1e9:.2f} GFLOP, {ops_ms:.3f} ms)")
+    log(f"K2 25m graph F={F}, needed gather {g.nnz * F * 4 / 1e9:.3f} GB: "
+        + "; ".join(f"{name} {t:.3f} ms, gather "
+                    f"{gather_rate(g.nnz, F, t):.2f} TB/s, "
+                    f"{bound_ms / t * 100:.2f}% of the bound"
+                    for name, t in (("K2", ms), ("torch.sparse.mm",
+                                                 library_ms),
+                                    ("K2 again", ms_again),
+                                    ("K3 on the same slabs", k3_ms))))
     return {"name": "spmm_block_slabs_windowed", "route": "cuda",
             "source": "src/repro_torch/csrc/spmm_windowed.cu",
             "replaces": "src/repro/kernels/spmm_accel.py:180",
@@ -707,70 +799,47 @@ def phase_timing_k2(torch, small, engine, launches, float_err):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def k3_stage_sweep(torch, args, bound, want):
-    """K3 at other gather-stage heights, launched through its C interface
-    (the wrapper fixes 32 rows at f_tile=128). Fewer rows per stage means
-    less shared memory and more CTAs per SM. Returns (rows, smem bytes,
-    CTAs per SM, ms) per height; each result is held to the pair bound."""
-    import ctypes
-    from repro_torch.kernels.build import build_kernel
-    lib = ctypes.CDLL(str(build_kernel("spmm_hbm")[0]))
-    lib.spmm_hbm_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.spmm_hbm_smem_bytes.restype = ctypes.c_longlong
-    launch = lib.spmm_hbm_launch
-    launch.argtypes = ([ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    launch.restype = ctypes.c_int
-    colidx, values, rowloc, out_row, x, n_out = args
-    B, C = colidx.shape
-    R = out_row.shape[1]
-    F = x.shape[1]
-    out = []
-    for rows in (4, 8, 16, 32, 64):
-        smem = lib.spmm_hbm_smem_bytes(C, R, 128, rows)
-        y = torch.zeros((n_out, F), device=x.device)
+def gather_rate(nnz, F, ms):
+    """TB/s of the gather a slab SpMM needs: one F-wide fp32 row segment
+    per non-zero (nnz * F * 4 bytes), whatever L2 serves of it."""
+    return nnz * F * 4 / (ms * 1e-3) / 1e12
 
-        def run(y=y, rows=rows):
-            err = launch(colidx.data_ptr(), values.data_ptr(),
-                         rowloc.data_ptr(), out_row.data_ptr(), x.data_ptr(),
-                         y.data_ptr(), B, C, R, F, n_out, 128, rows, 1,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"K3 launch at {rows} rows failed: {err}")
-        run()
-        check_close(f"K3 at {rows} rows per stage", y, want, bound)
-        run()
-        # every run adds into y: the time is the kernel's, the sum is not
-        t = cuda_ms(run, 10)
-        out.append((rows, smem, 233_472 // (smem + 1024), t))
-        del y
-    return out
+
+def fused_dispatch(torch, plans, F):
+    """The engine's fused dispatch of ``plans`` (merged slabs padded to the
+    block bucket) with random features of width F: (merged slabs, output
+    and column offsets, n_out, kernel arguments)."""
+    from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
+    merged, out_off, col_off, n_out = batch_graph_slabs(
+        [p.slabs for p in plans], [p.n_rows for p in plans],
+        [p.n_cols for p in plans],
+        pad_blocks_to=bucket_blocks(sum(p.num_blocks for p in plans)))
+    dev = merged["colidx"].device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((int(col_off[-1]), F), generator=gen, device=dev)
+    return merged, out_off, col_off, n_out, (
+        merged["colidx"], merged["values"], merged["rowloc"],
+        merged["out_row"], x, n_out)
 
 
 def phase_timing(torch, graphs, engine, launches, float_err):
     """K1 and K3 at the fused F=2048 Reddit+Arxiv dispatch shape against
     their plain version (the same function), the library SpMM and the
-    memory bound. ``launches`` and ``float_err`` are per kernel. Returns
-    the two kernel records."""
+    memory bound, timed in turns on one card: K1, K3, K1 again, the plain
+    version, torch.sparse.mm. ``launches`` and ``float_err`` are per
+    kernel. Returns the two kernel records."""
     import numpy as np
     from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
                                                 spmm_block_slabs_plain)
-    from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
     from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
 
     dev = torch.device("cuda")
     F = 2048
     plans = [engine.plan_for(name) for name in graphs]
     b_live = sum(p.num_blocks for p in plans)
-    merged, out_off, col_off, n_out = batch_graph_slabs(
-        [p.slabs for p in plans], [p.n_rows for p in plans],
-        [p.n_cols for p in plans], pad_blocks_to=bucket_blocks(b_live))
+    merged, out_off, col_off, n_out, args = fused_dispatch(torch, plans, F)
     n_x = int(col_off[-1])
-    gen = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((n_x, F), generator=gen, device=dev)
-    args = (merged["colidx"], merged["values"], merged["rowloc"],
-            merged["out_row"], x, n_out)
+    x = args[4]
 
     k1 = lambda: spmm_block_slabs(*args)               # noqa: E731
     k3 = lambda: spmm_block_slabs_hbm(*args)           # noqa: E731
@@ -783,13 +852,23 @@ def phase_timing(torch, graphs, engine, launches, float_err):
     err = {"K1": check_close("fused F=2048 K1 vs plain", got, want, bound)}
     got3 = k3()
     err["K3"] = check_close("fused F=2048 K3 vs plain", got3, want, bound)
-    del got3
+    del got3, bound, want
+    a_csr = sparse_csr(torch, graphs.values(), col_off, n_out, n_x, dev)
+    lib = lambda: torch.sparse.mm(a_csr, x)            # noqa: E731
+    lib_out = lib()
+    perm_back = torch.cat([p.inv_perm + int(o) for p, o in
+                           zip(plans, out_off[:-1])])
+    lib_err = float((got[perm_back] - lib_out).abs().max())
+    del lib_out
     for _ in range(2):
         k1()
         k3()
+    lib()
     ms = {"K1": cuda_ms(k1, 10), "K3": cuda_ms(k3, 10)}
     ms["K1 again"] = cuda_ms(k1, 10)     # K1 and K3 in turns, one card
     plain_ms = cuda_ms(plain, 2)
+    library_ms = cuda_ms(lib, 5)
+
     zero_ms = cuda_ms(lambda: torch.zeros((n_out, F), device=dev), 10)
     tiles = []
     for f_tile in (64, 256, 512):
@@ -798,23 +877,6 @@ def phase_timing(torch, graphs, engine, launches, float_err):
                      f"{cuda_ms(lambda: spmm_block_slabs(*args, f_tile=f_tile), 5):.3f} ms")
     log(f"K1 at f_tile=128 (default) {ms['K1']:.3f} ms; {', '.join(tiles)}; "
         f"of which zero-filling the output alone takes {zero_ms:.3f} ms")
-
-    stages = k3_stage_sweep(torch, args, bound, want)
-    log("K3 by gather-stage height (rows per ring stage; dynamic shared "
-        "memory per CTA; CTAs per SM by shared memory): " + "; ".join(
-            f"{rows} rows {smem} B {ctas} CTAs {t:.3f} ms"
-            for rows, smem, ctas, t in stages) + " (32 rows is the default)")
-    del bound, want
-
-    a_csr = sparse_csr(torch, graphs.values(), col_off, n_out, n_x, dev)
-    lib = lambda: torch.sparse.mm(a_csr, x)            # noqa: E731
-    lib_out = lib()
-    perm_back = torch.cat([p.inv_perm + int(o) for p, o in
-                           zip(plans, out_off[:-1])])
-    lib_err = float((got[perm_back] - lib_out).abs().max())
-    del lib_out
-    lib()
-    library_ms = cuda_ms(lib, 5)
 
     # hub row alone: the split blocks of Reddit's largest row, all adding
     # into one output row
@@ -852,9 +914,14 @@ def phase_timing(torch, graphs, engine, launches, float_err):
         f"ms, plain {plain_ms:.3f} ms, torch.sparse.mm {library_ms:.3f} ms "
         f"(max |K1 - sparse.mm| {lib_err:.2e}); bound {bound_ms:.3f} ms "
         f"({moved / 1e9:.3f} GB moved, {bytes_ms:.3f} ms; "
-        f"{2.0 * nnz * F / 1e9:.1f} GFLOP, {ops_ms:.3f} ms); K1 at "
-        f"{bound_ms / ms['K1'] * 100:.1f}%, K3 at "
-        f"{bound_ms / ms['K3'] * 100:.1f}% of the bound")
+        f"{2.0 * nnz * F / 1e9:.1f} GFLOP, {ops_ms:.3f} ms)")
+    log(f"fused dispatch F={F}, needed gather {nnz * F * 4 / 1e9:.1f} GB "
+        f"(nnz x F x 4): " + "; ".join(
+            f"{name} {t:.3f} ms, gather {gather_rate(nnz, F, t):.2f} TB/s, "
+            f"{bound_ms / t * 100:.2f}% of the bound"
+            for name, t in (("K1", ms["K1"]), ("K3", ms["K3"]),
+                            ("K1 again", ms["K1 again"]),
+                            ("torch.sparse.mm", library_ms))))
     records = []
     for kern, name, source, replaces in (
             ("K1", "spmm_block_slabs", "src/repro_torch/csrc/spmm_accel.cu",

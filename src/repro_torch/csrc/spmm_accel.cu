@@ -91,6 +91,12 @@ long long spmm_block_slabs_smem_bytes(int C, int R, int f_tile) {
   return (long long)R * f_tile * 4 + 3LL * C * 4 + (long long)R * 4;
 }
 
+// CTAs one SM holds at once (-1 if the runtime refuses to say).
+int spmm_block_slabs_ctas_per_sm(int C, int R, int f_tile) {
+  return slab::ctas_per_sm(spmm_block_slabs_kernel, f_tile,
+                           spmm_block_slabs_smem_bytes(C, R, f_tile));
+}
+
 // Launches K1 on `stream`. Returns cudaGetLastError() after the launch
 // (0 when the launch was accepted). The caller checks shapes, types and
 // that B * n_ftiles fits the grid.

@@ -12,8 +12,10 @@ atomics, so split rows (degree > C) sum across CTAs.
 K2 (``csrc/spmm_windowed.cu``) replaces ``_spmm_kernel_windowed``
 (``src/repro/kernels/spmm_accel.py:180``): the same product with X swept in
 row windows of ``window_rows``. Slots outside window ``w`` add nothing in
-sweep ``w`` and each block row sums its window partials in window order;
-the CTA stages each window through shared memory in sub-tiles.
+sweep ``w`` and each block row sums its window partials in window order.
+On the card it is K3's live-row gather pipeline (``csrc/slab_common.cuh``)
+walking the live slots by (local row, window, slot): only the live slots'
+row segments are gathered, whatever the number of windows.
 
 What bounds both on an H100 is memory: per call they must read the
 referenced X rows once, write the output once and read the slabs once; they
@@ -22,8 +24,8 @@ rate. K1 answers that by coalescing every gathered row (32 lanes on 32
 neighbouring floats), keeping several gathers in flight per thread,
 skipping padding slots and all-zero padding blocks, and never
 materialising the ``[B, R, F]`` block rows that the TPU version scatters in
-a second pass. K2 copies whole sub-tiles of the windows its slots touch,
-so it reads far more than that bound by design (see its source note).
+a second pass. K2 and K3 gather one row segment per live slot through a
+shared-memory ring in one of two instances (``gather_instance``).
 
 The TPU kernels' VMEM bounds (the resident-X budget, the pad of F to 128
 lanes and of N to 8 rows) do not apply: the kernels read X from device
@@ -41,17 +43,21 @@ import torch
 from .build import load_kernel
 from .router import resident_window_rows
 
-__all__ = ["DEFAULT_F_TILE", "MAX_SMEM_PER_CTA", "scatter_block_rows",
+__all__ = ["DEFAULT_F_TILE", "GATHER_INSTANCES", "MAX_SMEM_PER_CTA",
+           "gather_instance", "scatter_block_rows",
            "spmm_block_slabs", "spmm_block_slabs_plain",
            "spmm_block_slabs_windowed", "spmm_block_slabs_windowed_plain"]
 
 DEFAULT_F_TILE = 128   # threads per CTA: the feature columns one CTA owns
 MAX_SMEM_PER_CTA = 232_448   # bytes of shared memory one CTA may use on Hopper
 _MAX_GRID = 2**31 - 1
+_MAX_THREADS = 1024          # threads per CTA
 # elements of the [blocks, C, F] gather the plain versions materialise at once
 _PLAIN_CHUNK_ELEMS = 1 << 25
-# floats of one staged X sub-tile (K2) or one gather stage (K3) per CTA
-STAGE_ELEMS = 4096
+# K2's sort key holds a slot and a local row in 16 bits each
+_MAX_SORT_FIELD = 1 << 16
+# K2's and K3's two ways of gathering row segments (slab_common.cuh)
+GATHER_INSTANCES = ("bulk", "cp_async")
 
 _launch_lock = threading.Lock()
 
@@ -180,9 +186,23 @@ def check_launch(label: str, smem: int, B: int, F: int,
                          f"exceed the grid limit")
 
 
-def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args):
+def gather_instance(x: torch.Tensor, f_tile: int = DEFAULT_F_TILE) -> str:
+    """Which instance of K2's and K3's gather takes ``x`` at ``f_tile``:
+    ``"bulk"`` (one bulk copy per row segment, completing on mbarriers)
+    when F % 4 == 0 and x is 16-byte aligned, so every segment starts and
+    ends on 16 bytes, and the CTA's f_tile consumer threads plus the
+    producer warp fit in 1024 (f_tile <= 992); else ``"cp_async"`` (4-byte
+    copies, each of the f_tile threads its own column). A function of
+    shape, alignment and f_tile only."""
+    aligned = x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+    return "bulk" if aligned and f_tile + 32 <= _MAX_THREADS else "cp_async"
+
+
+def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args,
+                     instance: str | None = None):
     """Call the library's launch function ``fn`` on x's current stream,
-    raise if the launch was refused, and count it on ``wrapper``."""
+    raise if the launch was refused, and count it on ``wrapper`` (and on
+    ``wrapper.launches_by_instance[instance]`` when given)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
@@ -191,6 +211,8 @@ def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args):
                            f"{lib.slab_kernel_error_string(err).decode()}")
     with _launch_lock:
         wrapper.launches += 1
+        if instance is not None:
+            wrapper.launches_by_instance[instance] += 1
 
 
 def declare_common(lib: ctypes.CDLL) -> None:
@@ -202,6 +224,8 @@ def _declare_k1(lib: ctypes.CDLL) -> None:
     declare_common(lib)
     lib.spmm_block_slabs_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.spmm_block_slabs_smem_bytes.restype = ctypes.c_longlong
+    lib.spmm_block_slabs_ctas_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.spmm_block_slabs_ctas_per_sm.restype = ctypes.c_int
     lib.spmm_block_slabs_launch.argtypes = (
         [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -282,8 +306,9 @@ def spmm_block_slabs_windowed(
     ``f_tile=128``) is the semantic window of the reference kernel: slots
     outside window ``w`` add nothing in sweep ``w`` and each block row sums
     its window partials in window order. CUDA tensors launch K2 on the
-    current stream; CPU tensors take the plain version. There is no
-    fallback between the two.
+    current stream, in the instance ``gather_instance(x, f_tile)`` picks
+    (every f_tile of ``check_slabs`` has one); CPU tensors take the plain
+    version. There is no fallback between the two.
     """
     check_slabs(colidx, values, rowloc, out_row, x, n_rows, f_tile, "block_major")
     window = window_rows or resident_window_rows(f_tile, x.element_size())
@@ -300,17 +325,21 @@ def spmm_block_slabs_windowed(
 
 
 spmm_block_slabs_windowed.launches = 0   # K2 launches since the last reset
+spmm_block_slabs_windowed.launches_by_instance = dict.fromkeys(
+    GATHER_INSTANCES, 0)
 
 
 def _declare_k2(lib: ctypes.CDLL) -> None:
     declare_common(lib)
-    lib.spmm_windowed_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.spmm_windowed_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.spmm_windowed_smem_bytes.restype = ctypes.c_longlong
+    lib.spmm_windowed_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.spmm_windowed_ctas_per_sm.restype = ctypes.c_int
     lib.spmm_windowed_launch.argtypes = (
         [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-           ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p])
     lib.spmm_windowed_launch.restype = ctypes.c_int
 
 
@@ -322,13 +351,18 @@ def _launch_windowed(colidx, values, rowloc, out_row, x, n_rows: int,
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     if B == 0 or F == 0 or n_rows == 0 or N == 0:
         return out
-    sub_rows = max(1, min(window, STAGE_ELEMS // f_tile))
+    if C >= _MAX_SORT_FIELD or R >= _MAX_SORT_FIELD:
+        raise ValueError(f"K2 sorts slots by a key with 16-bit slot and row "
+                         f"fields; C={C} and R={R} must be below "
+                         f"{_MAX_SORT_FIELD}")
+    instance = gather_instance(x, f_tile)
     lib = load_kernel("spmm_windowed", _declare_k2)
-    check_launch("K2", lib.spmm_windowed_smem_bytes(C, R, f_tile, sub_rows),
-                 B, F, f_tile)
+    check_launch("K2", lib.spmm_windowed_smem_bytes(C, R, f_tile), B, F,
+                 f_tile)
     launch_on_stream(
         "K2", lib, lib.spmm_windowed_launch, spmm_block_slabs_windowed, x,
         colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
         out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
-        B, C, R, F, N, n_rows, f_tile, window, sub_rows)
+        B, C, R, F, n_rows, f_tile, window, int(instance == "bulk"),
+        instance=instance)
     return out

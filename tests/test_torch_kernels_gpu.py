@@ -10,7 +10,11 @@ where only PyTorch is installed. Integer-valued graphs make every sum exact
 in fp32: each kernel must equal its plain version bit for bit. On
 normalized graphs two fp32 results may differ by twice the summation bound
 ``k * 2**-24 * (|A| @ |x|)``, ``k = min(deg, C) + ceil(deg / C) + 1`` per
-row, plus ``num_windows`` for K2. K4's sums of K products are each within
+row, plus ``num_windows`` for K2. K2's window order is pinned by blocks
+whose rows come out exactly 1 only if each row adds its window partials in
+window order (slot order gives 0), held bit for bit against the plain
+version on the CPU (``index_add_`` on the card has no fixed order). Each
+K2/K3 gather-instance case asserts which instance ran. K4's sums of K products are each within
 ``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order in
 the simt instance, the tensor cores' order in the wgmma instance, any
 order in the plain version), so the two differ by at most twice that;
@@ -24,7 +28,7 @@ import torch
 from repro_torch.core.graph import CSRGraph, gcn_normalize
 from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
 from repro_torch.data.graphs import make_power_law_graph
-from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+from repro_torch.kernels.spmm_accel import (gather_instance, spmm_block_slabs,
                                             spmm_block_slabs_plain,
                                             spmm_block_slabs_windowed,
                                             spmm_block_slabs_windowed_plain)
@@ -183,6 +187,73 @@ def test_routed_kernels_normalized_graph_within_summation_bound(cuda, kernel):
     k = np.minimum(deg, cfg.deg_bound) + -(-deg // cfg.deg_bound) + 1 + levels
     bound = 2 * 2.0 ** -24 * torch.as_tensor(k, device=cuda)[:, None] * mag
     assert torch.all((got.double() - want.double()).abs() <= bound)
+
+
+def _pinning_block(n_rows, window, seed):
+    """One block of ``n_rows`` local rows, each summing +1 at a column of a
+    higher window, +2**24 at a column of a lower window, then -2**24 in
+    the higher window, over x = 1: window order gives exactly 1 per row,
+    slot order 0. Slots are in row runs, windows out of order."""
+    rng = np.random.default_rng(seed)
+    n_x = 64 * window
+    lo = rng.integers(0, 32, n_rows) * window + rng.integers(0, window, n_rows)
+    hi = rng.integers(32, 64, n_rows) * window
+    cols = np.stack([hi + rng.integers(0, window, n_rows), lo,
+                     hi + rng.integers(0, window, n_rows)], axis=1)
+    vals = np.tile(np.float32([1.0, 2.0 ** 24, -2.0 ** 24]), (n_rows, 1))
+    C = 3 * n_rows + 5                                 # 5 padding slots
+    colidx = np.zeros((1, C), np.int32)
+    values = np.zeros((1, C), np.float32)
+    rowloc = np.full((1, C), n_rows - 1, np.int32)
+    colidx[0, :3 * n_rows] = cols.reshape(-1)
+    values[0, :3 * n_rows] = vals.reshape(-1)
+    rowloc[0, :3 * n_rows] = np.repeat(np.arange(n_rows), 3)
+    out_row = np.arange(n_rows, dtype=np.int32)[None, :]
+    return [torch.from_numpy(a) for a in (colidx, values, rowloc, out_row)], n_x
+
+
+@pytest.mark.parametrize("n_rows,window", [(1, 4), (50, 1), (50, 33)])
+@pytest.mark.parametrize("F", [1, 100, 2048])
+def test_k2_window_order_pinned(cuda, n_rows, window, F):
+    slabs, n_x = _pinning_block(n_rows, window, seed=n_rows + F)
+    x = torch.ones((n_x, F))
+    want = spmm_block_slabs_windowed_plain(*slabs, x, n_rows, window)
+    assert torch.equal(want, torch.ones((n_rows, F)))
+    got = spmm_block_slabs_windowed(*[t.to(cuda) for t in slabs], x.to(cuda),
+                                    n_rows, window_rows=window)
+    assert torch.equal(got.cpu(), want)
+
+
+# x layouts (F, offset in floats from a 256-byte aligned allocation),
+# f_tile, and the gather instance K2 and K3 must take for each
+INSTANCE_CASES = {"F1": (1, 0, 128, "cp_async"),
+                  "F77": (77, 0, 128, "cp_async"),
+                  "F100": (100, 0, 128, "bulk"),
+                  "F2048": (2048, 0, 128, "bulk"),
+                  "F2048_unaligned": (2048, 1, 128, "cp_async"),
+                  "F2048_ftile992": (2048, 0, 992, "bulk"),
+                  "F2048_ftile1024": (2048, 0, 1024, "cp_async")}
+
+
+@pytest.mark.parametrize("kernel", ["windowed_80", "hbm"])
+@pytest.mark.parametrize("case", sorted(INSTANCE_CASES))
+def test_routed_kernels_gather_instances(cuda, kernel, case):
+    F, offset, f_tile, instance = INSTANCE_CASES[case]
+    cfg = PartitionConfig("tpu", 64, 4)
+    g = _edge_graph(cfg.deg_bound, seed=F + offset)
+    fn, plain, kw, _ = _routed(kernel, g.n_cols)
+    plan = build_partition_plan(g, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    base = torch.empty(g.n_cols * F + offset, device=cuda)
+    x = base[offset:].view(g.n_cols, F)
+    x.copy_(torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda))
+    assert gather_instance(x, f_tile) == instance
+    before = dict(fn.launches_by_instance)
+    got = fn(*_args(plan.slabs), x, g.n_rows, f_tile=f_tile, **kw)
+    torch.cuda.synchronize()
+    before[instance] += 1
+    assert fn.launches_by_instance == before
+    assert torch.equal(got, plain(*_args(plan.slabs), x, g.n_rows))
 
 
 # K4 edge cases: rows per expert in blocks (0 = an expert with no rows),

@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-K2 (``csrc/spmm_windowed.cu``) and K3 (``csrc/spmm_hbm.cu``) are one
-live-row gather pipeline (``csrc/slab_common.cuh``): a CTA per (block,
-feature tile), feature-tile-major over the grid, gathers one row
-segment per live slot into a shared-memory ring (a bulk copy per segment
-on mbarriers where F % 4 == 0 and X is 16-byte aligned, else 4-byte
-cp.async per thread), sums each local row's run in registers and adds it
-into the output with one fp32 RED; K3 walks the slots in slot order, K2
-by (local row, window, slot), adding window partials in window order.
+K1 (``csrc/spmm_accel.cu``), K2 (``csrc/spmm_windowed.cu``) and K3
+(``csrc/spmm_hbm.cu``) are one live-row gather pipeline
+(``csrc/slab_common.cuh``): a CTA per (block, feature tile),
+feature-tile-major over the grid, gathers one row segment per live slot
+into a shared-memory ring (a bulk copy per segment on mbarriers where
+F % 4 == 0 and X is 16-byte aligned, else 4-byte cp.async per thread), sums
+each local row's run in registers and adds it into the output with one
+fp32 RED; K1 and K3 launch the same kernel in slot order, K2 walks by
+(local row, window, slot), adding window partials in window order.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -20,22 +21,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``spmm_windowed.cu``, ``spmm_hbm.cu``, ``grouped_matmul.cu``) with nvcc
    for sm_90a, all four at once, and print ptxas' registers, shared memory
    and spills, and each kernel's dynamic shared memory per CTA and the
-   CTAs one SM holds (K2 and K3 per gather instance; more than 2 each);
+   CTAs one SM holds per gather instance (K1 at every f_tile of its sweep,
+   K2 and K3 at 128; more than 2 each);
 3. each kernel against its plain PyTorch version on the card, in both
    partition modes: zero-degree rows, degree == deg_bound, degree > C
    (split rows), F in {1, 100, 2048}, and merged batched slabs with
    all-zero padding blocks, also from an X view 4 bytes off a 16-byte
-   boundary; K2 at 1, 2 and 4 row windows, with window boundaries that cut
-   blocks. Integer-valued graphs must match exactly. K2's window order is
-   pinned by a row that sums to exactly 1 only in window order (0 in slot
-   order), held bit for bit against the plain version on the CPU; both
-   gather instances of K2 and K3 must have run;
+   boundary; K1 at every f_tile its wrapper can pick; K2 at 1, 2 and 4 row
+   windows, with window boundaries that cut blocks. Integer-valued graphs
+   must match exactly. K2's window order is pinned by a row that sums to
+   exactly 1 only in window order (0 in slot order), held bit for bit
+   against the plain version on the CPU; both gather instances of K1, K2
+   and K3 must have run;
 4. slice A's path: the Reddit and Arxiv analogues registered in one
    GraphServeEngine (backend ``accel``, K1), the 25m GCN (dims
    1024-2048x4-256, 256 classes) served layer by layer for 2 rounds, then
    4 threads x 4 concurrent submits at width 256. Every answer is checked
    against the CSR oracle on the card. The K1 launch count of this phase
-   must equal the number of dispatches;
+   must equal the number of dispatches, every launch through the ``bulk``
+   gather instance;
 5. where one served F=2048 layer spends its device time (torch.profiler);
 6. slice B1's path, routed serving: GraphServeEngine(backend="auto") serves
    the same GCN for 2 rounds over the Reddit and Arxiv analogues fused into
@@ -43,17 +47,20 @@ Phases (any failure exits non-zero and prints no result line):
    (windowed, 2 windows -> K2) and the ``tiny`` preset's graph alone
    (resident -> K1). Every answer is checked against the CSR oracle; the
    K1/K2/K3 launch counts of the phase must equal the engines' routed
-   counts (12/12/12), each at least 1, and every K2 and K3 launch of the
-   phase must have taken the ``bulk`` gather instance; backend="pallas"
-   on Reddit must raise VmemBudgetError;
+   counts (12/12/12), each at least 1, and every K1, K2 and K3 launch of
+   the phase must have taken the ``bulk`` gather instance;
+   backend="pallas" on Reddit must raise VmemBudgetError;
 7. kernel times (CUDA events), in turns on one card: K1, K3, K1 again, the
    plain version and ``torch.sparse.mm`` on the same A and X (a yardstick
-   the port never calls) per fused Reddit+Arxiv dispatch at F=2048, then
-   K1 diagnostics (other f_tiles, the hub row); K2, ``torch.sparse.mm``, K2
-   again and the plain version on the 25m graph at F=2048. Each beside the
-   memory bound and its rate of needed gather bytes (nnz * F * 4 / ms).
-   The K3 gather-stage sweep of earlier versions is gone with the C
-   interface it drove (PERF.md keeps its numbers);
+   the port never calls) per fused Reddit+Arxiv dispatch at F=2048; K1's
+   column-slice sweep (f_tile 32 to 512 in both gather instances) in turns
+   with K3 and ``torch.sparse.mm``, each first held against the plain
+   version; the hub
+   row; K1 in its routed regime (the ``tiny`` graph and a 4,096-node
+   power-law graph at F=2048) beside ``torch.sparse.mm``; K2,
+   ``torch.sparse.mm``, K2 again and the plain version on the 25m graph at
+   F=2048. Each beside the memory bound and its rate of needed gather bytes
+   (nnz * F * 4 / ms);
 8. K4, the grouped GEMM, against its plain version on edge cases, each
    case asserting which of K4's two instances ran it. The CUDA-core
    (``simt``) instance: an expert with no rows, a single expert, trailing
@@ -110,6 +117,7 @@ N_CLASSES = 256
 GRAPHS = ("Reddit", "Arxiv")
 # examples/train_gcn.py presets: (name, nodes, edges) of their own graphs
 PRESET_GRAPHS = (("25m", 8_000, 64_000), ("tiny", 2_000, 12_000))
+K1_SWEEP = (32, 64, 128, 256, 512)   # K1's column slices timed in phase 7
 
 
 def log(msg):
@@ -178,8 +186,10 @@ def phase_card(torch):
 def phase_build():
     """Build every kernel library at once and print, per kernel, what ptxas
     reports (registers, spills, static shared memory) and, at C=256, R=64,
-    f_tile=128, its dynamic shared memory per CTA and the CTAs one SM holds
-    (K2 and K3 for each gather instance)."""
+    its dynamic shared memory per CTA and the CTAs one SM holds for each
+    gather instance: K1 at every f_tile of the phase 7 sweep, K2 and K3 at
+    f_tile=128. Fails where a pipeline CTA that the wrappers launch leaves
+    2 or fewer CTAs per SM."""
     from repro_torch.kernels import spmm_accel, spmm_hbm
     from repro_torch.kernels.build import build_all, load_kernel
     t0 = time.perf_counter()
@@ -192,25 +202,25 @@ def phase_build():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling", "warning")):
                 log(f"ptxas: {line.strip()}")
-    C, R, f_tile = 256, 64, 128
+    C, R = 256, 64
     k1 = load_kernel("spmm_accel", spmm_accel._declare_k1)
-    log(f"K1 at C={C}, R={R}, f_tile={f_tile}: "
-        f"{k1.spmm_block_slabs_smem_bytes(C, R, f_tile)} B of dynamic shared "
-        f"memory per CTA, {k1.spmm_block_slabs_ctas_per_sm(C, R, f_tile)} "
-        f"CTAs per SM")
-    for kern, lib, prefix in (
+    for kern, lib, prefix, f_tiles in (
+            ("K1", k1, "spmm_block_slabs", K1_SWEEP),
             ("K2", load_kernel("spmm_windowed", spmm_accel._declare_k2),
-             "spmm_windowed"),
-            ("K3", load_kernel("spmm_hbm", spmm_hbm._declare), "spmm_hbm")):
-        smem = getattr(lib, f"{prefix}_smem_bytes")(C, R, f_tile)
-        ctas = {inst: getattr(lib, f"{prefix}_ctas_per_sm")(
-                    C, R, f_tile, int(inst == "bulk"))
-                for inst in spmm_accel.GATHER_INSTANCES}
-        log(f"{kern} at C={C}, R={R}, f_tile={f_tile}: {smem} B of dynamic "
-            f"shared memory per CTA (no [R, f_tile] tile); CTAs per SM: "
-            + ", ".join(f"{i} {n}" for i, n in ctas.items()))
-        if min(ctas.values()) <= 2:
-            raise AssertionError(f"{kern}: {ctas} CTAs per SM")
+             "spmm_windowed", (128,)),
+            ("K3", load_kernel("spmm_hbm", spmm_hbm._declare), "spmm_hbm",
+             (128,))):
+        for f_tile in f_tiles:
+            smem = getattr(lib, f"{prefix}_smem_bytes")(C, R, f_tile)
+            ctas = {inst: getattr(lib, f"{prefix}_ctas_per_sm")(
+                        C, R, f_tile, int(inst == "bulk"))
+                    for inst in spmm_accel.GATHER_INSTANCES}
+            log(f"{kern} at C={C}, R={R}, f_tile={f_tile}: {smem} B of "
+                f"dynamic shared memory per CTA (no [R, f_tile] tile); CTAs "
+                f"per SM: " + ", ".join(f"{i} {n}" for i, n in ctas.items()))
+            if min(ctas.values()) <= 2:
+                raise AssertionError(f"{kern} f_tile={f_tile}: {ctas} CTAs "
+                                     f"per SM")
     log("K4: its source's fixed ring (kSmemBytes, 197,696 B) allows one "
         "CTA per SM")
 
@@ -232,16 +242,50 @@ def edge_case_graph(C, seed):
     return CSRGraph(rowptr, colidx, values, n)
 
 
-def kernel_variants(n_x):
+def k1_tiles():
+    """Every f_tile K1's wrapper can pick: its default and 32, 64, 128."""
+    from repro_torch.kernels.spmm_accel import K1_F_TILE
+    return sorted({32, 64, 128, K1_F_TILE})
+
+
+def k1_c_launch(torch, instance, f_tile, colidx, values, rowloc, out_row,
+                x, n_rows):
+    """K1 through its C interface in the given gather instance, on the
+    current stream. Not counted: only the wrapper counts launches."""
+    from repro_torch.kernels import spmm_accel
+    from repro_torch.kernels.build import load_kernel
+    lib = load_kernel("spmm_accel", spmm_accel._declare_k1)
+    B, C = colidx.shape
+    R = out_row.shape[1]
+    F = x.shape[1]
+    out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
+    if B == 0 or F == 0 or n_rows == 0:
+        return out
+    ptrs = (colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
+            out_row.data_ptr(), x.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.spmm_block_slabs_launch(*ptrs, B, C, R, F, n_rows, f_tile,
+                                      int(instance == "bulk"), stream)
+    if err:
+        raise RuntimeError(f"K1 {instance} launch failed: "
+                           f"{lib.slab_kernel_error_string(err).decode()}")
+    return out
+
+
+def kernel_variants(torch, n_x):
     """(kernel, label, launch, plain version, extra summation levels) for
-    a feature operand of n_x rows: K1, K3, and K2 at 1, 2 and 4 windows."""
+    a feature operand of n_x rows: K1 at every f_tile its wrapper can pick,
+    K3, and K2 at 1, 2 and 4 windows."""
+    from functools import partial
     from repro_torch.kernels.spmm_accel import (
         spmm_block_slabs, spmm_block_slabs_plain, spmm_block_slabs_windowed,
         spmm_block_slabs_windowed_plain)
     from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
                                               spmm_block_slabs_hbm_plain)
-    out = [("K1", "K1", spmm_block_slabs, spmm_block_slabs_plain, 0),
-           ("K3", "K3", spmm_block_slabs_hbm, spmm_block_slabs_hbm_plain, 0)]
+    out = [("K1", f"K1 f_tile={t}", partial(spmm_block_slabs, f_tile=t),
+            spmm_block_slabs_plain, 0) for t in k1_tiles()]
+    out.append(("K3", "K3", spmm_block_slabs_hbm, spmm_block_slabs_hbm_plain,
+                0))
     for nw in (1, 2, 4):
         window = -(-n_x // nw)
         if -(-n_x // window) != nw:
@@ -286,7 +330,7 @@ def phase_kernel_cases(torch, dev):
     from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
     from repro_torch.data.graphs import make_power_law_graph
     from repro_torch.kernels.spmm_accel import (
-        spmm_block_slabs_plain, spmm_block_slabs_windowed,
+        spmm_block_slabs, spmm_block_slabs_plain, spmm_block_slabs_windowed,
         spmm_block_slabs_windowed_plain)
     from repro_torch.kernels.spmm_batched import batch_graph_slabs, bucket_blocks
     from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
@@ -300,7 +344,8 @@ def phase_kernel_cases(torch, dev):
         args = (slabs["colidx"], slabs["values"], slabs["rowloc"],
                 slabs["out_row"])
         mag = None
-        for kern, name, fn, plain, levels in kernel_variants(x.shape[0]):
+        for kern, name, fn, plain, levels in kernel_variants(torch,
+                                                            x.shape[0]):
             got = fn(*args, x, n_rows)
             want = plain(*args, x, n_rows)
             if dev.type == "cuda":
@@ -364,7 +409,7 @@ def phase_kernel_cases(torch, dev):
     for F in (1, 100, 2048):
         xi = torch.randint(-4, 5, (n_x, F), generator=gen, device=dev).float()
         run(f"merged F={F}", merged, n_out, xi, True)
-    # a view 4 bytes past a 16-byte boundary: K2 and K3 take cp_async
+    # a view 4 bytes past a 16-byte boundary: K1, K2 and K3 take cp_async
     xu = torch.empty(n_x * 2048 + 1, device=dev)[1:].view(n_x, 2048)
     xu.copy_(xi)
     run("merged F=2048, unaligned x", merged, n_out, xu, True)
@@ -381,7 +426,8 @@ def phase_kernel_cases(torch, dev):
                                  f"{got[0, :4].tolist()}, plain on the CPU "
                                  f"{want[0, :4].tolist()} (window order: 1)")
     by_instance = {k: dict(fn.launches_by_instance) for k, fn in
-                   (("K2", spmm_block_slabs_windowed),
+                   (("K1", spmm_block_slabs),
+                    ("K2", spmm_block_slabs_windowed),
                     ("K3", spmm_block_slabs_hbm))}
     log(f"K2 window order pinned (exactly 1.0 at F=1, 100, 2048); gather "
         f"instances launched: {by_instance}")
@@ -413,7 +459,8 @@ def csr_check(torch, g, x, y, C, nnz_chunk, extra_levels=0):
 def phase_serve(torch, dev):
     from repro_torch.core.graph import gcn_normalize
     from repro_torch.data.graphs import make_benchmark_graph
-    from repro_torch.kernels.spmm_accel import spmm_block_slabs
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs)
     from repro_torch.models.layers import dense_init
     from repro_torch.serve.graph_engine import GraphRequest, GraphServeEngine
 
@@ -448,6 +495,7 @@ def phase_serve(torch, dev):
     C = engine.config.deg_bound
 
     spmm_block_slabs.launches = 0          # main path starts here
+    spmm_block_slabs.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
     t_main = time.perf_counter()
     last_xw = {}
     for rnd in range(2):
@@ -512,6 +560,7 @@ def phase_serve(torch, dev):
         raise AssertionError("not every concurrent request was answered")
     t_main = time.perf_counter() - t_main
     launches = spmm_block_slabs.launches   # main path ends here
+    by_instance = dict(spmm_block_slabs.launches_by_instance)
     st = engine.stats()
     engine.close()
     log(f"concurrent: {n_threads} threads x {per_thread} submits, max err "
@@ -535,6 +584,11 @@ def phase_serve(torch, dev):
             or launches != st["routed_resident"]:
         raise AssertionError(f"K1 launches {launches} != dispatches "
                              f"{st['batches_dispatched']}")
+    # every fused X is a fresh contiguous tensor of width % 4 == 0
+    log(f"K1 launches by gather instance: {by_instance}")
+    if by_instance != {"bulk": launches, "cp_async": 0}:
+        raise AssertionError(f"K1's launches by instance {by_instance}: "
+                             f"expected all {launches} bulk")
     return graphs, engine, launches
 
 
@@ -627,10 +681,8 @@ def phase_routed(torch, dev, graphs, cache):
     kernels = {"K1": spmm_block_slabs, "K2": spmm_block_slabs_windowed,
                "K3": spmm_block_slabs_hbm}
 
-    gathers = {k: kernels[k] for k in ("K2", "K3")}
     for fn in kernels.values():            # main path starts here
         fn.launches = 0
-    for fn in gathers.values():
         fn.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
     t_main = time.perf_counter()
     for rnd in range(2):
@@ -670,7 +722,7 @@ def phase_routed(torch, dev, graphs, cache):
     t_main = time.perf_counter() - t_main
     launches = {k: fn.launches for k, fn in kernels.items()}  # path ends
     by_instance = {k: dict(fn.launches_by_instance)
-                   for k, fn in gathers.items()}
+                   for k, fn in kernels.items()}
     big, sm = big_engine.stats(), small_engine.stats()
     routed = {"K1": big["routed_resident"] + sm["routed_resident"],
               "K2": big["routed_windowed"] + sm["routed_windowed"],
@@ -682,9 +734,9 @@ def phase_routed(torch, dev, graphs, cache):
     if launches != routed or min(launches.values()) < 1:
         raise AssertionError(f"kernel launches {launches} differ from the "
                              f"routed dispatches {routed}")
-    # every routed X is a fresh contiguous product of width % 4 == 0 at
-    # f_tile 128, so every K2 and K3 launch of the path must be bulk
-    log(f"routed path: K2/K3 launches by gather instance {by_instance}")
+    # every routed X is a fresh contiguous product of width % 4 == 0, so
+    # every K1, K2 and K3 launch of the path must be bulk
+    log(f"routed path: launches by gather instance {by_instance}")
     for k, counts in by_instance.items():
         if counts != {"bulk": launches[k], "cp_async": 0}:
             raise AssertionError(f"{k}'s routed launches by instance "
@@ -822,14 +874,37 @@ def fused_dispatch(torch, plans, F):
         merged["out_row"], x, n_out)
 
 
+def k1_sweep_configs(torch, args):
+    """K1 in each gather instance at each f_tile of ``K1_SWEEP``, through
+    the C interface on ``args``."""
+    from functools import partial
+    from repro_torch.kernels.spmm_accel import GATHER_INSTANCES
+    return {f"K1 {inst} f_tile={t}": partial(k1_c_launch, torch, inst, t,
+                                             *args)
+            for t in K1_SWEEP for inst in GATHER_INSTANCES}
+
+
+def timed_in_turns(fns, reps, timer, rounds=2):
+    """Each callable timed ``rounds`` times, in turns: ms per call."""
+    ms = {label: [] for label in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            fn()
+            ms[label].append(timer(fn, reps))
+    return ms
+
+
 def phase_timing(torch, graphs, engine, launches, float_err):
     """K1 and K3 at the fused F=2048 Reddit+Arxiv dispatch shape against
     their plain version (the same function), the library SpMM and the
     memory bound, timed in turns on one card: K1, K3, K1 again, the plain
-    version, torch.sparse.mm. ``launches`` and ``float_err`` are per
-    kernel. Returns the two kernel records."""
+    version, torch.sparse.mm; then K1's column-slice sweep (each f_tile of
+    ``K1_SWEEP`` in both gather instances) in turns with K3 and
+    torch.sparse.mm, each checked against the plain version first.
+    ``launches`` and ``float_err`` are per kernel. Returns the two kernel
+    records."""
     import numpy as np
-    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+    from repro_torch.kernels.spmm_accel import (K1_F_TILE, spmm_block_slabs,
                                                 spmm_block_slabs_plain)
     from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
 
@@ -852,7 +927,14 @@ def phase_timing(torch, graphs, engine, launches, float_err):
     err = {"K1": check_close("fused F=2048 K1 vs plain", got, want, bound)}
     got3 = k3()
     err["K3"] = check_close("fused F=2048 K3 vs plain", got3, want, bound)
-    del got3, bound, want
+    del got3
+    sweep_fns = k1_sweep_configs(torch, args)
+    sweep_err = {label: check_close(f"fused F=2048 {label} vs plain", fn(),
+                                    want, bound)
+                 for label, fn in sweep_fns.items()}
+    del bound, want
+    log("fused F=2048 sweep configs within the pair bound of plain, max "
+        "|err|: " + ", ".join(f"{k} {v:.2e}" for k, v in sweep_err.items()))
     a_csr = sparse_csr(torch, graphs.values(), col_off, n_out, n_x, dev)
     lib = lambda: torch.sparse.mm(a_csr, x)            # noqa: E731
     lib_out = lib()
@@ -868,14 +950,27 @@ def phase_timing(torch, graphs, engine, launches, float_err):
     ms["K1 again"] = cuda_ms(k1, 10)     # K1 and K3 in turns, one card
     plain_ms = cuda_ms(plain, 2)
     library_ms = cuda_ms(lib, 5)
-
     zero_ms = cuda_ms(lambda: torch.zeros((n_out, F), device=dev), 10)
-    tiles = []
-    for f_tile in (64, 256, 512):
-        spmm_block_slabs(*args, f_tile=f_tile)
-        tiles.append(f"f_tile={f_tile} "
-                     f"{cuda_ms(lambda: spmm_block_slabs(*args, f_tile=f_tile), 5):.3f} ms")
-    log(f"K1 at f_tile=128 (default) {ms['K1']:.3f} ms; {', '.join(tiles)}; "
+
+    nnz = sum(g.nnz for g in graphs.values())
+    bound_ms, bound_by, moved, bytes_ms, ops_ms = bound_of(
+        n_x, n_out, F, merged, nnz)
+    slab_pass = sum(merged[k].numel() * 4
+                    for k in ("colidx", "values", "rowloc", "out_row"))
+    turns = dict(sweep_fns, **{"K3": k3, "torch.sparse.mm": lib})
+    sweep = timed_in_turns(turns, 5, cuda_ms)
+    log(f"K1 column-slice sweep, fused dispatch F={F}, in turns (2 rounds "
+        f"of 5 calls; ms per call; X slice = n_x x f_tile x 4 B, L2 50 MB; "
+        f"slabs read once per slice, {slab_pass / 1e6:.1f} MB a pass):")
+    for label, ts in sweep.items():
+        f_tile = int(label.rsplit("=", 1)[1]) if "f_tile=" in label else None
+        extra = (f"; X slice {n_x * f_tile * 4 / 1e6:.1f} MB, slabs "
+                 f"{-(-F // f_tile) * slab_pass / 1e9:.2f} GB"
+                 if f_tile else "")
+        log(f"sweep {label}: {ts[0]:.3f} / {ts[1]:.3f} ms, gather "
+            f"{gather_rate(nnz, F, min(ts)):.2f} TB/s, "
+            f"{bound_ms / min(ts) * 100:.2f}% of the bound{extra}")
+    log(f"K1 at f_tile={K1_F_TILE} (default) {ms['K1']:.3f} ms; "
         f"of which zero-filling the output alone takes {zero_ms:.3f} ms")
 
     # hub row alone: the split blocks of Reddit's largest row, all adding
@@ -905,9 +1000,6 @@ def phase_timing(torch, graphs, engine, launches, float_err):
         f"slots without reuse would take {hub_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
         f" ms at the memory rate)")
 
-    nnz = sum(g.nnz for g in graphs.values())
-    bound_ms, bound_by, moved, bytes_ms, ops_ms = bound_of(
-        n_x, n_out, F, merged, nnz)
     log(f"fused dispatch F={F}: {merged['colidx'].shape[0]} blocks "
         f"({b_live} live), n_x={n_x} n_out={n_out} nnz={nnz}; K1 "
         f"{ms['K1']:.3f} ms (again {ms['K1 again']:.3f}), K3 {ms['K3']:.3f} "
@@ -935,6 +1027,71 @@ def phase_timing(torch, graphs, engine, launches, float_err):
             "ms": ms[kern], "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
     return records
+
+
+def device_ms(fn, reps):
+    """Like ``cuda_ms``, for calls shorter than their host overhead: the
+    card is held busy while the calls are queued, so the events time the
+    calls back to back on the card."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)         # ~10 ms of clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_timing_resident(torch, small, engine):
+    """K1 in the regime ``auto`` routes to it (N_pad <= 4096 at fp32, X
+    within L2) at F=2048: the ``tiny`` preset's graph and a 4,096-node
+    power-law graph, K1 at its default and in the sweep's configurations
+    against torch.sparse.mm on the same A and X, in turns."""
+    import numpy as np
+    from repro_torch.core.graph import gcn_normalize
+    from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.kernels.router import route_spmm
+    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+                                                spmm_block_slabs_plain)
+    dev = torch.device("cuda")
+    F = 2048
+    g4 = gcn_normalize(make_power_law_graph(4096, 32768, seed=6))
+    cases = {"tiny": (small["tiny"], engine.plan_for("tiny")),
+             "power-law 4096": (g4, build_partition_plan(
+                 g4, PartitionConfig(), device=dev))}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for name, (g, plan) in cases.items():
+        s = plan.slabs
+        d = route_spmm(g.n_cols, F, int(s["C"]), int(s["R"]))
+        if d.backend != "resident":
+            raise AssertionError(f"{name}: routed to {d.backend}")
+        x = torch.randn((g.n_cols, F), generator=gen, device=dev)
+        args = (s["colidx"], s["values"], s["rowloc"], s["out_row"], x,
+                plan.n_rows)
+        want = spmm_block_slabs_plain(*args)
+        bound = pair_bound(torch, spmm_block_slabs_plain, args[:4], x,
+                           plan.n_rows,
+                           summation_k(g, int(s["C"]), True))
+        fns = {"K1 default": lambda: spmm_block_slabs(*args)}
+        fns.update(k1_sweep_configs(torch, args))
+        for label, fn in fns.items():
+            check_close(f"{name} F={F} {label} vs plain", fn(), want, bound)
+        a_csr = sparse_csr(torch, [g], [0], plan.n_rows, g.n_cols, dev)
+        fns["torch.sparse.mm"] = lambda: torch.sparse.mm(a_csr, x)
+        ms = timed_in_turns(fns, 50, device_ms)
+        bound_ms = bound_of(g.n_cols, plan.n_rows, F, s, g.nnz)[0]
+        log(f"resident regime, {name}: {g.n_rows} nodes, {g.nnz} nnz, "
+            f"{plan.num_blocks} blocks, F={F}, X {g.n_cols * F * 4 / 1e6:.1f}"
+            f" MB; bound {bound_ms:.4f} ms; ms per call (2 rounds of 50, "
+            f"queued behind a busy card):")
+        for label, ts in ms.items():
+            log(f"resident {name} {label}: {ts[0]:.4f} / {ts[1]:.4f} ms, "
+                f"{bound_ms / min(ts) * 100:.2f}% of the bound")
+        del want, bound
 
 
 # ------------------------------------------------------------ slice C1
@@ -1522,6 +1679,7 @@ def main():
     # K1's record keeps slice A's path count; K2 and K3 report slice B1's
     launches["K1"] = launches_a
     k1, k3 = phase_timing(torch, graphs, engine, launches, float_err)
+    phase_timing_resident(torch, small, small_engine)
     k2 = phase_timing_k2(torch, small, small_engine, launches,
                          float_err["K2"])
     del graphs, engine, small, small_engine

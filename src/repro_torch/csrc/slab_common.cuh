@@ -16,8 +16,9 @@
 // degree d serves local row j / d; a split block has one row) and puts the
 // padding slots, value 0, after the live ones. So in every block the live
 // slots' rowloc never decreases, and each local row is one run of slots.
-// K1 keeps a shared [R, f_tile] tile; K2 and K3 use that invariant to add
-// each run straight into out (the live-row gather pipeline below).
+// All three kernels use that invariant to add each run straight into out
+// (the live-row gather pipeline below); K1 and K3 compute the same
+// function and launch the same kernel, slot_order_kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,43 +50,6 @@ __device__ __forceinline__ int stage_block(
   if (live) atomicMax(s_live, live);
   __syncthreads();
   return *s_live;
-}
-
-// K1's running sum of one thread's column over consecutive slots of the
-// same local row; flushed into the shared [R, f_tile] tile `acc` when the
-// row changes. The product is rounded before the sum, as the plain
-// versions do.
-struct RowRun {
-  int cur = -1;
-  float run = 0.f;
-
-  __device__ __forceinline__ void add(int r, float v, float xv, float* acc,
-                                      int f_tile, int t) {
-    if (r != cur) {
-      if (cur >= 0) acc[cur * f_tile + t] += run;
-      cur = r;
-      run = 0.f;
-    }
-    run = __fadd_rn(run, __fmul_rn(v, xv));
-  }
-
-  __device__ __forceinline__ void flush(float* acc, int f_tile, int t) {
-    if (cur >= 0) acc[cur * f_tile + t] += run;
-  }
-};
-
-// K1's fused epilogue: adds each local row of the block into out[out_row]
-// with an fp32 atomicAdd (compiled to a fire-and-forget RED). A row with
-// degree <= C has one writer onto a zero, which is exact; the blocks of a
-// split row (degree > C) sum across CTAs in no fixed order.
-__device__ __forceinline__ void add_block_rows(
-    const float* acc, const int32_t* s_out, float* __restrict__ out, int R,
-    int f_tile, int t, int64_t F, int64_t f, int n_rows) {
-  for (int r = 0; r < R; ++r) {
-    const int o = s_out[r];
-    if (o == n_rows) continue;  // sentinel: padding row
-    atomicAdd(out + (int64_t)o * F + f, acc[r * f_tile + t]);
-  }
 }
 
 // Asynchronous global -> shared copies (sm_80+). A thread's copies are
@@ -128,10 +92,10 @@ inline int ctas_per_sm(Kernel kernel, int threads, long long smem) {
 }
 
 // ------------------------------------------------------------------------
-// The live-row gather pipeline of K2 and K3.
+// The live-row gather pipeline of K1, K2 and K3.
 //
-// A CTA walks its block's live slots in an order the kernel gives (K3:
-// slot order; K2: by local row, then window, then slot), gathers each
+// A CTA walks its block's live slots in an order the kernel gives (K1 and
+// K3: slot order; K2: by local row, then window, then slot), gathers each
 // slot's row segment x[col, f0 : f0 + f_tile] into a shared-memory ring of
 // kRingStages stages of kStageRows segments, and reduces it in registers:
 // per local row a window partial summed in walk order and a row total that
@@ -158,7 +122,7 @@ __host__ __device__ inline int pow2_at_least(int n) {
   return p;
 }
 
-// Dynamic shared memory of a K2/K3 CTA: the ring, a full and an empty
+// Dynamic shared memory of a pipeline CTA: the ring, a full and an empty
 // barrier per stage, K2's sort keys, then the block's slots and rows.
 struct GatherSmem {
   float* ring;       // [kRingStages, kStageRows, f_tile]
@@ -285,7 +249,7 @@ struct Slot {
   uint32_t win;
 };
 
-// K3's walk: the block's first n_live slots in slot order (zero-valued
+// K1's and K3's walk: the block's first n_live slots in slot order (zero-valued
 // ones are walked over without a copy or a product).
 struct SlotOrder {
   const int32_t* col;
@@ -478,6 +442,65 @@ __device__ __forceinline__ void gather_reduce(
     cp_async_wait<0>();
   }
   if (f_ok) run.flush(s_out, out, F, f, n_rows);
+}
+
+// K1's and K3's kernel: the pipeline over the block's slots in slot order.
+// One CTA per (block, feature tile), feature-tile-major; an all-zero
+// padding block exits before issuing any copy.
+template <bool kBulk>
+__global__ void slot_order_kernel(
+    const int32_t* __restrict__ colidx, const float* __restrict__ values,
+    const int32_t* __restrict__ rowloc, const int32_t* __restrict__ out_row,
+    const float* __restrict__ x, float* __restrict__ out, int64_t B, int C,
+    int R, int64_t F, int n_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_live;
+  const int f_tile = kBulk ? blockDim.x - 32 : blockDim.x;
+  const GatherSmem sm(smem, C, f_tile, false);
+  int64_t b;
+  int tile;
+  cta_tile(B, b, tile);
+  if (kBulk) init_ring(sm, f_tile);
+  const int n_live = stage_block(colidx, values, rowloc, out_row, b, C, R,
+                                 sm.col, sm.val, sm.row, sm.out, &s_live);
+  if (n_live == 0) return;  // all-zero block: no copy, nothing to add
+  gather_reduce<kBulk>(x, out, F, (int64_t)tile * f_tile, f_tile, n_live,
+                       SlotOrder{sm.col, sm.val, sm.row}, sm.out, n_rows, sm);
+}
+
+// Host side of slot_order_kernel, for the C interfaces of K1 and K3.
+inline long long slot_order_smem_bytes(int C, int R, int f_tile) {
+  return GatherSmem::bytes(C, R, f_tile, false);
+}
+
+inline int slot_order_ctas_per_sm(int C, int R, int f_tile, int bulk) {
+  const long long smem = slot_order_smem_bytes(C, R, f_tile);
+  return bulk ? ctas_per_sm(slot_order_kernel<true>, f_tile + 32, smem)
+              : ctas_per_sm(slot_order_kernel<false>, f_tile, smem);
+}
+
+// Launches slot_order_kernel on `stream` and returns cudaGetLastError().
+// The caller checks shapes, types, that B * n_ftiles fits the grid, and
+// passes bulk = 1 only when F % 4 == 0, x is 16-byte aligned and
+// f_tile + 32 <= 1024.
+inline int slot_order_launch(const void* colidx, const void* values,
+                             const void* rowloc, const void* out_row,
+                             const void* x, void* out, int B, int C, int R,
+                             long long F, int n_rows, int f_tile, int bulk,
+                             void* stream) {
+  const int n_ftiles = (int)((F + f_tile - 1) / f_tile);
+  const long long smem = slot_order_smem_bytes(C, R, f_tile);
+  auto kernel = bulk ? &slot_order_kernel<true> : &slot_order_kernel<false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((long long)B * n_ftiles);
+  kernel<<<grid, f_tile + (bulk ? 32 : 0), (size_t)smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(colidx), static_cast<const float*>(values),
+      static_cast<const int32_t*>(rowloc), static_cast<const int32_t*>(out_row),
+      static_cast<const float*>(x), static_cast<float*>(out), (int64_t)B, C,
+      R, (int64_t)F, n_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace slab

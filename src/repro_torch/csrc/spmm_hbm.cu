@@ -8,7 +8,7 @@
 // block skips the gather. Inputs: slab_common.cuh.
 //
 // Design: the live-row gather pipeline of slab_common.cuh, walking the
-// block's slots in slot order.
+// block's slots in slot order (slot_order_kernel, which K1 launches too).
 //   * one CTA per (block, feature tile), feature-tile-major, so that the
 //     CTAs resident together share a column slice of X in L2;
 //   * the CTA stages its block's slots in shared memory and finds the last
@@ -33,68 +33,28 @@
 
 #include "slab_common.cuh"
 
-namespace {
-
-template <bool kBulk>
-__global__ void spmm_hbm_kernel(
-    const int32_t* __restrict__ colidx, const float* __restrict__ values,
-    const int32_t* __restrict__ rowloc, const int32_t* __restrict__ out_row,
-    const float* __restrict__ x, float* __restrict__ out, int64_t B, int C,
-    int R, int64_t F, int n_rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int s_live;
-  const int f_tile = kBulk ? blockDim.x - 32 : blockDim.x;
-  const slab::GatherSmem sm(smem, C, f_tile, false);
-  int64_t b;
-  int tile;
-  slab::cta_tile(B, b, tile);
-  if (kBulk) slab::init_ring(sm, f_tile);
-  const int n_live = slab::stage_block(colidx, values, rowloc, out_row, b, C,
-                                       R, sm.col, sm.val, sm.row, sm.out,
-                                       &s_live);
-  if (n_live == 0) return;  // all-zero block: no copy, nothing to add
-  slab::gather_reduce<kBulk>(x, out, F, (int64_t)tile * f_tile, f_tile,
-                             n_live, slab::SlotOrder{sm.col, sm.val, sm.row},
-                             sm.out, n_rows, sm);
-}
-
-}  // namespace
-
 extern "C" {
 
 // Shared memory one CTA needs, in bytes.
 long long spmm_hbm_smem_bytes(int C, int R, int f_tile) {
-  return slab::GatherSmem::bytes(C, R, f_tile, false);
+  return slab::slot_order_smem_bytes(C, R, f_tile);
 }
 
 // CTAs one SM holds at once (-1 if the runtime refuses to say).
 int spmm_hbm_ctas_per_sm(int C, int R, int f_tile, int bulk) {
-  const long long smem = spmm_hbm_smem_bytes(C, R, f_tile);
-  return bulk ? slab::ctas_per_sm(spmm_hbm_kernel<true>, f_tile + 32, smem)
-              : slab::ctas_per_sm(spmm_hbm_kernel<false>, f_tile, smem);
+  return slab::slot_order_ctas_per_sm(C, R, f_tile, bulk);
 }
 
 // Launches K3 on `stream`. Returns cudaGetLastError() after the launch
 // (0 when the launch was accepted). The caller checks shapes, types, that
-// B * n_ftiles fits the grid, and passes bulk = 1 only when F % 4 == 0 and
-// x is 16-byte aligned.
+// B * n_ftiles fits the grid, and passes bulk = 1 only when F % 4 == 0,
+// x is 16-byte aligned and f_tile <= 992.
 int spmm_hbm_launch(const void* colidx, const void* values,
                     const void* rowloc, const void* out_row, const void* x,
                     void* out, int B, int C, int R, long long F, int n_rows,
                     int f_tile, int bulk, void* stream) {
-  const int n_ftiles = (int)((F + f_tile - 1) / f_tile);
-  const long long smem = spmm_hbm_smem_bytes(C, R, f_tile);
-  auto kernel = bulk ? &spmm_hbm_kernel<true> : &spmm_hbm_kernel<false>;
-  cudaError_t e = slab::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((long long)B * n_ftiles);
-  kernel<<<grid, f_tile + (bulk ? 32 : 0), (size_t)smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(colidx), static_cast<const float*>(values),
-      static_cast<const int32_t*>(rowloc), static_cast<const int32_t*>(out_row),
-      static_cast<const float*>(x), static_cast<float*>(out), (int64_t)B, C,
-      R, (int64_t)F, n_rows);
-  return (int)cudaGetLastError();
+  return slab::slot_order_launch(colidx, values, rowloc, out_row, x, out, B,
+                                 C, R, F, n_rows, f_tile, bulk, stream);
 }
 
 }  // extern "C"

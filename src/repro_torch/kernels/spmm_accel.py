@@ -3,29 +3,31 @@ kernels, their wrappers and their plain PyTorch versions.
 
 K1 (``csrc/spmm_accel.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.spmm_accel._spmm_kernel`` (``src/repro/kernels/spmm_accel.py:73``)
-and its ``scatter_block_rows`` epilogue. It takes the paper's GPU design
-rather than the TPU's: one CTA per (block, feature tile) with the feature
-tile as the combined warp, the intra-block row reduction in shared memory,
-and a fused epilogue that adds each block row into the output with fp32
-atomics, so split rows (degree > C) sum across CTAs.
+and its ``scatter_block_rows`` epilogue. The TPU kernel keeps a column
+slice of X resident in VMEM while it sweeps every block; on the card the
+on-chip place for that slice is L2. K1 is the live-row gather pipeline of
+``csrc/slab_common.cuh`` in slot order, the kernel K3 launches too: one CTA
+per (block, feature tile), feature-tile-major, so that the CTAs in flight
+share one column slice of X; each live slot's row segment goes through a
+shared-memory ring, each local row's run is summed in registers and added
+into the output with one fp32 RED, so split rows (degree > C) sum across
+CTAs. ``K1_F_TILE`` is the width of its column slice.
 
 K2 (``csrc/spmm_windowed.cu``) replaces ``_spmm_kernel_windowed``
 (``src/repro/kernels/spmm_accel.py:180``): the same product with X swept in
 row windows of ``window_rows``. Slots outside window ``w`` add nothing in
 sweep ``w`` and each block row sums its window partials in window order.
-On the card it is K3's live-row gather pipeline (``csrc/slab_common.cuh``)
-walking the live slots by (local row, window, slot): only the live slots'
-row segments are gathered, whatever the number of windows.
+On the card it is the same pipeline walking the live slots by (local row,
+window, slot): only the live slots' row segments are gathered, whatever
+the number of windows.
 
 What bounds both on an H100 is memory: per call they must read the
 referenced X rows once, write the output once and read the slabs once; they
 do 2 flops per slab slot and feature column, far below the card's fp32
-rate. K1 answers that by coalescing every gathered row (32 lanes on 32
-neighbouring floats), keeping several gathers in flight per thread,
-skipping padding slots and all-zero padding blocks, and never
-materialising the ``[B, R, F]`` block rows that the TPU version scatters in
-a second pass. K2 and K3 gather one row segment per live slot through a
-shared-memory ring in one of two instances (``gather_instance``).
+rate. The pipeline gathers one row segment per live slot in one of two
+instances (``gather_instance``), skips padding slots and all-zero padding
+blocks, and never materialises the ``[B, R, F]`` block rows that the TPU
+version scatters in a second pass.
 
 The TPU kernels' VMEM bounds (the resident-X budget, the pad of F to 128
 lanes and of N to 8 rows) do not apply: the kernels read X from device
@@ -43,12 +45,14 @@ import torch
 from .build import load_kernel
 from .router import resident_window_rows
 
-__all__ = ["DEFAULT_F_TILE", "GATHER_INSTANCES", "MAX_SMEM_PER_CTA",
+__all__ = ["DEFAULT_F_TILE", "GATHER_INSTANCES", "K1_F_TILE",
+           "MAX_SMEM_PER_CTA",
            "gather_instance", "scatter_block_rows",
            "spmm_block_slabs", "spmm_block_slabs_plain",
            "spmm_block_slabs_windowed", "spmm_block_slabs_windowed_plain"]
 
 DEFAULT_F_TILE = 128   # threads per CTA: the feature columns one CTA owns
+K1_F_TILE = 256        # K1's column slice of X, in features
 MAX_SMEM_PER_CTA = 232_448   # bytes of shared memory one CTA may use on Hopper
 _MAX_GRID = 2**31 - 1
 _MAX_THREADS = 1024          # threads per CTA
@@ -56,7 +60,7 @@ _MAX_THREADS = 1024          # threads per CTA
 _PLAIN_CHUNK_ELEMS = 1 << 25
 # K2's sort key holds a slot and a local row in 16 bits each
 _MAX_SORT_FIELD = 1 << 16
-# K2's and K3's two ways of gathering row segments (slab_common.cuh)
+# the pipeline's two ways of gathering row segments (slab_common.cuh)
 GATHER_INSTANCES = ("bulk", "cp_async")
 
 _launch_lock = threading.Lock()
@@ -146,15 +150,17 @@ def spmm_block_slabs(
     x: torch.Tensor,        # f32[N, F]
     n_rows: int,
     *,
-    f_tile: int = DEFAULT_F_TILE,
+    f_tile: int = K1_F_TILE,
     grid_order: str = "block_major",
 ) -> torch.Tensor:
     """Block-slab SpMM over packed slabs; returns ``[n_rows, F]`` fp32 in
     the slabs' (degree-sorted) row order.
 
-    CUDA tensors launch K1 on the current stream; CPU tensors take the plain
+    CUDA tensors launch K1 on the current stream, in the instance
+    ``gather_instance(x, f_tile)`` picks; CPU tensors take the plain
     version. There is no fallback between the two. ``f_tile`` is the number
-    of feature columns (threads) per CTA. ``grid_order`` is accepted for
+    of feature columns per CTA: the width of the column slice of X that the
+    CTAs in flight share. ``grid_order`` is accepted for
     signature parity with the TPU kernel and has no effect: CTAs on a GPU
     run in no fixed order. The slabs are trusted to come from ``pack_slabs``
     or ``batch_graph_slabs``: every ``rowloc`` is below R, every ``colidx``
@@ -167,10 +173,13 @@ def spmm_block_slabs(
     if x.device.type != "cuda":
         raise ValueError(f"spmm_block_slabs runs on cuda or cpu, got "
                          f"{x.device}")
-    return _launch(colidx, values, rowloc, out_row, x, n_rows, f_tile)
+    return launch_slot_order("K1", "spmm_accel", "spmm_block_slabs",
+                             spmm_block_slabs, colidx, values, rowloc,
+                             out_row, x, n_rows, f_tile)
 
 
 spmm_block_slabs.launches = 0   # K1 launches since the caller last reset it
+spmm_block_slabs.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
 
 
 def check_launch(label: str, smem: int, B: int, F: int,
@@ -187,7 +196,8 @@ def check_launch(label: str, smem: int, B: int, F: int,
 
 
 def gather_instance(x: torch.Tensor, f_tile: int = DEFAULT_F_TILE) -> str:
-    """Which instance of K2's and K3's gather takes ``x`` at ``f_tile``:
+    """Which instance of the pipeline's gather (K1, K2, K3) takes ``x`` at
+    ``f_tile``:
     ``"bulk"`` (one bulk copy per row segment, completing on mbarriers)
     when F % 4 == 0 and x is 16-byte aligned, so every segment starts and
     ends on 16 bytes, and the CTA's f_tile consumer threads plus the
@@ -220,35 +230,53 @@ def declare_common(lib: ctypes.CDLL) -> None:
     lib.slab_kernel_error_string.restype = ctypes.c_char_p
 
 
-def _declare_k1(lib: ctypes.CDLL) -> None:
-    declare_common(lib)
-    lib.spmm_block_slabs_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.spmm_block_slabs_smem_bytes.restype = ctypes.c_longlong
-    lib.spmm_block_slabs_ctas_per_sm.argtypes = [ctypes.c_int] * 3
-    lib.spmm_block_slabs_ctas_per_sm.restype = ctypes.c_int
-    lib.spmm_block_slabs_launch.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.spmm_block_slabs_launch.restype = ctypes.c_int
+def declare_slot_order(prefix: str):
+    """The ctypes declarations of a library of ``slot_order_kernel``, whose
+    C functions are ``<prefix>_smem_bytes``, ``_ctas_per_sm`` and
+    ``_launch`` (K1: ``spmm_block_slabs``, K3: ``spmm_hbm``)."""
+    def declare(lib: ctypes.CDLL) -> None:
+        declare_common(lib)
+        smem = getattr(lib, f"{prefix}_smem_bytes")
+        smem.argtypes = [ctypes.c_int] * 3
+        smem.restype = ctypes.c_longlong
+        ctas = getattr(lib, f"{prefix}_ctas_per_sm")
+        ctas.argtypes = [ctypes.c_int] * 4
+        ctas.restype = ctypes.c_int
+        launch = getattr(lib, f"{prefix}_launch")
+        launch.argtypes = (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        launch.restype = ctypes.c_int
+    return declare
 
 
-def _launch(colidx, values, rowloc, out_row, x, n_rows: int,
-            f_tile: int) -> torch.Tensor:
+_declare_k1 = declare_slot_order("spmm_block_slabs")
+
+
+def launch_slot_order(label: str, source: str, prefix: str, wrapper, colidx,
+                      values, rowloc, out_row, x, n_rows: int,
+                      f_tile: int) -> torch.Tensor:
+    """Launch ``slot_order_kernel`` from library ``csrc/<source>.cu`` (K1
+    or K3) on x's current stream, in the instance ``gather_instance``
+    picks, and count it on ``wrapper``; returns the zero-filled output it
+    adds into."""
     B, C = colidx.shape
     R = out_row.shape[1]
     F = x.shape[1]
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     if B == 0 or F == 0 or n_rows == 0:
         return out
-    lib = load_kernel("spmm_accel", _declare_k1)
-    check_launch("K1", lib.spmm_block_slabs_smem_bytes(C, R, f_tile), B, F,
-                 f_tile)
+    instance = gather_instance(x, f_tile)
+    lib = load_kernel(source, declare_slot_order(prefix))
+    check_launch(label, getattr(lib, f"{prefix}_smem_bytes")(C, R, f_tile),
+                 B, F, f_tile)
     launch_on_stream(
-        "K1", lib, lib.spmm_block_slabs_launch, spmm_block_slabs, x,
+        label, lib, getattr(lib, f"{prefix}_launch"), wrapper, x,
         colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
         out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
-        B, C, R, F, n_rows, f_tile)
+        B, C, R, F, n_rows, f_tile, int(instance == "bulk"),
+        instance=instance)
     return out
 
 

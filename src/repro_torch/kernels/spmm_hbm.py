@@ -18,18 +18,17 @@ once, the output written once, the slabs read once. The router sends it
 every dispatch past the reference's windowed threshold, which covers the
 large serving graphs.
 
-K3 computes the same function as K1, so its plain version is K1's.
+K3 computes the same function as K1 and launches the same kernel
+(``launch_slot_order``; K3 at ``DEFAULT_F_TILE`` columns per CTA, K1 at
+``K1_F_TILE``), so its plain version is K1's.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .build import load_kernel
-from .spmm_accel import (DEFAULT_F_TILE, GATHER_INSTANCES, check_launch,
-                         check_slabs, declare_common, gather_instance,
-                         launch_on_stream, spmm_block_slabs_plain)
+from .spmm_accel import (DEFAULT_F_TILE, GATHER_INSTANCES, check_slabs,
+                         declare_slot_order, launch_slot_order,
+                         spmm_block_slabs_plain)
 
 __all__ = ["DEFAULT_F_TILE", "spmm_block_slabs_hbm",
            "spmm_block_slabs_hbm_plain"]
@@ -60,7 +59,9 @@ def spmm_block_slabs_hbm(
     if x.device.type != "cuda":
         raise ValueError(f"spmm_block_slabs_hbm runs on cuda or cpu, got "
                          f"{x.device}")
-    return _launch(colidx, values, rowloc, out_row, x, n_rows, f_tile)
+    return launch_slot_order("K3", "spmm_hbm", "spmm_hbm",
+                             spmm_block_slabs_hbm, colidx, values, rowloc,
+                             out_row, x, n_rows, f_tile)
 
 
 spmm_block_slabs_hbm.launches = 0   # K3 launches since the last reset
@@ -68,34 +69,4 @@ spmm_block_slabs_hbm.launches_by_instance = dict.fromkeys(GATHER_INSTANCES,
                                                           0)
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    declare_common(lib)
-    lib.spmm_hbm_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.spmm_hbm_smem_bytes.restype = ctypes.c_longlong
-    lib.spmm_hbm_ctas_per_sm.argtypes = [ctypes.c_int] * 4
-    lib.spmm_hbm_ctas_per_sm.restype = ctypes.c_int
-    lib.spmm_hbm_launch.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.spmm_hbm_launch.restype = ctypes.c_int
-
-
-def _launch(colidx, values, rowloc, out_row, x, n_rows: int,
-            f_tile: int) -> torch.Tensor:
-    B, C = colidx.shape
-    R = out_row.shape[1]
-    F = x.shape[1]
-    out = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
-    if B == 0 or F == 0 or n_rows == 0:
-        return out
-    instance = gather_instance(x, f_tile)
-    lib = load_kernel("spmm_hbm", _declare)
-    check_launch("K3", lib.spmm_hbm_smem_bytes(C, R, f_tile), B, F, f_tile)
-    launch_on_stream(
-        "K3", lib, lib.spmm_hbm_launch, spmm_block_slabs_hbm, x,
-        colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
-        out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
-        B, C, R, F, n_rows, f_tile, int(instance == "bulk"),
-        instance=instance)
-    return out
+_declare = declare_slot_order("spmm_hbm")

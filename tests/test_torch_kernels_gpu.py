@@ -13,8 +13,9 @@ normalized graphs two fp32 results may differ by twice the summation bound
 row, plus ``num_windows`` for K2. K2's window order is pinned by blocks
 whose rows come out exactly 1 only if each row adds its window partials in
 window order (slot order gives 0), held bit for bit against the plain
-version on the CPU (``index_add_`` on the card has no fixed order). Each
-K2/K3 gather-instance case asserts which instance ran. K4's sums of K products are each within
+version on the CPU (``index_add_`` on the card has no fixed order). K1
+runs at every f_tile its wrapper can pick; each K1 case and each K1/K2/K3
+gather-instance case asserts which instance ran. K4's sums of K products are each within
 ``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order in
 the simt instance, the tensor cores' order in the wgmma instance, any
 order in the plain version), so the two differ by at most twice that;
@@ -28,7 +29,8 @@ import torch
 from repro_torch.core.graph import CSRGraph, gcn_normalize
 from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
 from repro_torch.data.graphs import make_power_law_graph
-from repro_torch.kernels.spmm_accel import (gather_instance, spmm_block_slabs,
+from repro_torch.kernels.spmm_accel import (K1_F_TILE, gather_instance,
+                                            spmm_block_slabs,
                                             spmm_block_slabs_plain,
                                             spmm_block_slabs_windowed,
                                             spmm_block_slabs_windowed_plain)
@@ -66,24 +68,55 @@ def _args(slabs):
             slabs["out_row"])
 
 
+# every f_tile K1's wrapper can pick
+K1_TILES = sorted({32, 64, 128, K1_F_TILE})
+
+
+def _view(n, F, offset, cuda):
+    """An [n, F] view ``offset`` floats past a 256-byte aligned base."""
+    base = torch.empty(n * F + offset, device=cuda)
+    return base[offset:].view(n, F)
+
+
+def _k1_on(args, x, n_rows, f_tile):
+    """K1's output, asserting that it launched once, in the instance
+    ``gather_instance`` picks for x and f_tile."""
+    instance = gather_instance(x, f_tile)
+    before = spmm_block_slabs.launches
+    by_instance = dict(spmm_block_slabs.launches_by_instance)
+    got = spmm_block_slabs(*args, x, n_rows, f_tile=f_tile)
+    torch.cuda.synchronize()
+    by_instance[instance] += 1
+    assert spmm_block_slabs.launches == before + 1
+    assert spmm_block_slabs.launches_by_instance == by_instance
+    return got
+
+
 @pytest.mark.parametrize("mode,mbw,mwn", [("tpu", 64, 4), ("paper", 12, 32)])
 @pytest.mark.parametrize("F", [1, 100, 2048])
-def test_k1_equals_plain_on_integer_graphs(cuda, mode, mbw, mwn, F):
+@pytest.mark.parametrize("f_tile", K1_TILES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_equals_plain_on_integer_graphs(cuda, mode, mbw, mwn, F, f_tile,
+                                           offset):
+    """Split rows, at every f_tile; offset 1 puts x 4 bytes off a 16-byte
+    boundary, which takes the cp_async instance (as F = 1 does)."""
     cfg = PartitionConfig(mode, mbw, mwn)
     g = _edge_graph(cfg.deg_bound, seed=F)
     plan = build_partition_plan(g, cfg, device=cuda)
     assert plan.partition.is_split.any()
     gen = torch.Generator(device=cuda).manual_seed(F)
-    x = torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda).float()
-    before = spmm_block_slabs.launches
-    got = spmm_block_slabs(*_args(plan.slabs), x, g.n_rows)
-    torch.cuda.synchronize()
-    assert spmm_block_slabs.launches == before + 1
+    x = _view(g.n_cols, F, offset, cuda)
+    x.copy_(torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda))
+    assert gather_instance(x, f_tile) == (
+        "bulk" if F % 4 == 0 and offset == 0 else "cp_async")
+    got = _k1_on(_args(plan.slabs), x, g.n_rows, f_tile)
     assert torch.equal(got, spmm_block_slabs_plain(*_args(plan.slabs), x,
                                                    g.n_rows))
 
 
-def test_k1_equals_plain_on_merged_slabs_with_padding_blocks(cuda):
+@pytest.mark.parametrize("f_tile", K1_TILES)
+@pytest.mark.parametrize("F", [77, 2048])
+def test_k1_equals_plain_on_merged_slabs_with_padding_blocks(cuda, f_tile, F):
     plans, n_cols = [], []
     for cfg in (PartitionConfig("tpu", 64, 4), PartitionConfig("paper", 12, 32)):
         g = _edge_graph(cfg.deg_bound, seed=cfg.deg_bound)
@@ -93,12 +126,13 @@ def test_k1_equals_plain_on_merged_slabs_with_padding_blocks(cuda):
     merged, _, _, n_out = batch_graph_slabs(
         [p.slabs for p in plans], [p.n_rows for p in plans], n_cols,
         pad_blocks_to=2 * bucket_blocks(b_total))
-    x = torch.randint(-4, 5, (sum(n_cols), 77), device=cuda).float()
-    got = spmm_block_slabs(*_args(merged), x, n_out)
+    x = torch.randint(-4, 5, (sum(n_cols), F), device=cuda).float()
+    got = _k1_on(_args(merged), x, n_out, f_tile)
     assert torch.equal(got, spmm_block_slabs_plain(*_args(merged), x, n_out))
 
 
-def test_k1_normalized_graph_within_summation_bound(cuda):
+@pytest.mark.parametrize("f_tile", K1_TILES)
+def test_k1_normalized_graph_within_summation_bound(cuda, f_tile):
     """fp32 sums in different orders: |K1 - plain| <= 2 k u (|A| @ |x|) with
     k = min(deg, C) + ceil(deg / C) + 1 per row."""
     cfg = PartitionConfig()
@@ -106,7 +140,7 @@ def test_k1_normalized_graph_within_summation_bound(cuda):
     plan = build_partition_plan(g, cfg, device=cuda)
     x = torch.randn(g.n_cols, 256, device=cuda)
     args = _args(plan.slabs)
-    got = spmm_block_slabs(*args, x, g.n_rows)
+    got = _k1_on(args, x, g.n_rows, f_tile)
     want = spmm_block_slabs_plain(*args, x, g.n_rows)
     mag = spmm_block_slabs_plain(args[0], args[1].abs(), args[2], args[3],
                                  x.abs(), g.n_rows).double()
@@ -123,7 +157,9 @@ ROUTED = {"windowed_4096": 4096, "windowed_80": 80, "windowed_33": 33,
 
 def _routed(kernel, n_cols):
     """(kernel, plain version, keyword arguments, summation levels the
-    kernel adds over K1: one per row window for K2)."""
+    kernel adds over K1: one per row window for K2); "resident" is K1."""
+    if kernel == "resident":
+        return spmm_block_slabs, spmm_block_slabs_plain, {}, 0
     window = ROUTED[kernel]
     if window is None:
         return spmm_block_slabs_hbm, spmm_block_slabs_hbm_plain, {}, 0
@@ -225,7 +261,7 @@ def test_k2_window_order_pinned(cuda, n_rows, window, F):
 
 
 # x layouts (F, offset in floats from a 256-byte aligned allocation),
-# f_tile, and the gather instance K2 and K3 must take for each
+# f_tile, and the gather instance K1, K2 and K3 must take for each
 INSTANCE_CASES = {"F1": (1, 0, 128, "cp_async"),
                   "F77": (77, 0, 128, "cp_async"),
                   "F100": (100, 0, 128, "bulk"),
@@ -235,7 +271,7 @@ INSTANCE_CASES = {"F1": (1, 0, 128, "cp_async"),
                   "F2048_ftile1024": (2048, 0, 1024, "cp_async")}
 
 
-@pytest.mark.parametrize("kernel", ["windowed_80", "hbm"])
+@pytest.mark.parametrize("kernel", ["windowed_80", "hbm", "resident"])
 @pytest.mark.parametrize("case", sorted(INSTANCE_CASES))
 def test_routed_kernels_gather_instances(cuda, kernel, case):
     F, offset, f_tile, instance = INSTANCE_CASES[case]
@@ -244,8 +280,7 @@ def test_routed_kernels_gather_instances(cuda, kernel, case):
     fn, plain, kw, _ = _routed(kernel, g.n_cols)
     plan = build_partition_plan(g, cfg, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(F)
-    base = torch.empty(g.n_cols * F + offset, device=cuda)
-    x = base[offset:].view(g.n_cols, F)
+    x = _view(g.n_cols, F, offset, cuda)
     x.copy_(torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda))
     assert gather_instance(x, f_tile) == instance
     before = dict(fn.launches_by_instance)

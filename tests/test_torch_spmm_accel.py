@@ -168,3 +168,28 @@ def test_wrapper_validates_and_uses_plain_version_on_cpu():
     torch.testing.assert_close(
         port_k.spmm_block_slabs(ci, va, rl, orow, x, gs.n_rows,
                                 grid_order="ft_major"), out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f_tile", sorted({32, 64, 128, port_k.K1_F_TILE}))
+@pytest.mark.parametrize("F,offset", [(8, 0), (8, 1), (3, 0)])
+def test_cpu_tensors_count_no_launch_in_either_counter(f_tile, F, offset):
+    """On CPU tensors K1's wrapper takes the plain version at every f_tile
+    it can pick, whichever gather instance the layout would take on the
+    card (offset 1: x 4 bytes off a 16-byte boundary), and counts nothing:
+    neither ``launches`` nor ``launches_by_instance``."""
+    g = _int_graph(make_powerlaw_csr(n=70, seed=5), seed=5)
+    gs, s = _slabs(g, "tpu", 16, 8)
+    base = torch.from_numpy(np.random.default_rng(F).integers(
+        -3, 4, g.n_cols * F + 4).astype(np.float32))
+    shift = (-base.data_ptr() // 4) % 4 + offset      # floats to the boundary
+    x = base[shift:shift + g.n_cols * F].view(g.n_cols, F)
+    assert port_k.gather_instance(x, f_tile) == (
+        "bulk" if F % 4 == 0 and offset == 0 else "cp_async")
+    before = port_k.spmm_block_slabs.launches
+    by_instance = dict(port_k.spmm_block_slabs.launches_by_instance)
+    got = port_k.spmm_block_slabs(*_t(s), x, gs.n_rows, f_tile=f_tile)
+    assert port_k.spmm_block_slabs.launches == before
+    assert port_k.spmm_block_slabs.launches_by_instance == by_instance
+    np.testing.assert_array_equal(
+        got.numpy(), port_k.spmm_block_slabs_plain(*_t(s), x,
+                                                   gs.n_rows).numpy())

@@ -61,7 +61,37 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.sparse.mm``, K2 again and the plain version on the 25m graph at
    F=2048. Each beside the memory bound and its rate of needed gather bytes
    (nnz * F * 4 / ms);
-8. K4, the grouped GEMM, against its plain version on edge cases, each
+8. slice D's training path: the ``100m`` preset of
+   ``examples/train_gcn.py`` (5,000 nodes, dims 1024-4096x7-256, 256
+   classes, 9 layers, ~106M fp32 parameters, from seed 0) built through
+   ``repro_torch.examples.train_gcn.build_problem`` with ``GraphOp`` on K1
+   (``backend="accel"``). Step 0's loss and every gradient against the
+   twin (``backend="blocked"``) from the same parameters, within
+   ``grad_bound_rel``; one backward aggregation ``bwd(g)`` at F=4096
+   against the fp64 CSR oracle of A'^T within the
+   summation bound; then 5 SGD steps (lr 1e-2) through the trainer's
+   ``train`` loop: losses finite and falling, K1 launched 18 times per step
+   (9 on the A' plan, 9 on the A'^T plan); the median step time by CUDA
+   events, K1's share of a step's device time by torch.profiler, peak
+   memory; a checkpoint of the final parameters restored bit for bit with
+   the same loss; ``sage`` and ``gin`` at the ``tiny`` preset against the
+   twin;
+9. slice D's mutation path: the Arxiv analogue (169,343 nodes, ~1.34M nnz
+   after gcn_normalize) in a ``GraphServeEngine`` of backend ``accel`` (K1)
+   and one of backend ``auto`` (K3 at F=2048), served at F=2048, then 4
+   ``mutate()`` deltas of 250 inserts and 250 deletes each while 2 threads
+   submit reads. Every read equals the CSR oracle of one published version
+   (pre- or post-delta), every delta is repaired (no rebuild), and the final
+   version's answer equals a fresh ``build_partition_plan`` of the
+   post-delta graph through the same kernel within twice the summation
+   bound; an integer-valued copy (values 1-3, features -4..4) holds all of
+   it exactly. A second integer chain draws its deletes uniformly over
+   the edges, so they land on the hub rows and the fragmentation guard may
+   rebuild: its reads and final version are held exactly as above, and
+   each delta's repaired/rebuilt outcome is logged, not asserted. The
+   phase's K1 and K3 launches must equal the engines' dispatches. Then the repair of one delta against a fresh build on the
+   host clock, and the served latency before and after;
+10. K4, the grouped GEMM, against its plain version on edge cases, each
    case asserting which of K4's two instances ran it. The CUDA-core
    (``simt``) instance: an expert with no rows, a single expert, trailing
    clipped blocks, m_tile 8/16/128/160, K and N not multiples of 4, fp32
@@ -71,8 +101,8 @@ Phases (any failure exits non-zero and prints no result line):
    of the experts beside the one multiplied. Integer inputs exact, float
    inputs within ``(K+1) * 2**-24 * (|x| @ |w|)`` of the fp64 product.
    Then ``wgmma`` exact on integers at dbrx-132b's full wi and wo widths,
-   at 144 and 20 row blocks (the two token counts of phase 9);
-9. slice C1's path: ``moe_block`` at dbrx-132b's full width (d_model 6144,
+   at 144 and 20 row blocks (the two token counts of phase 11);
+11. slice C1's path: ``moe_block`` at dbrx-132b's full width (d_model 6144,
    d_ff 10752, 16 experts, top-4) through K4, weights from ``init_moe``
    (router fp32, experts bf16): {4,096 tokens, 128 tokens} x {balanced,
    skewed} routing and one fp32 run. K4 launches: 3 per call, the 12 of
@@ -82,12 +112,14 @@ Phases (any failure exits non-zero and prints no result line):
    (``k4_pair_check``), and the outputs of K4's path and of the twin
    against an fp64 oracle on a sample of 256 tokens (bound in
    ``moe_oracle``);
-10. K4 times at 4,096 tokens (each GEMM in bf16 through ``wgmma``, wi
+12. K4 times at 4,096 tokens (each GEMM in bf16 through ``wgmma``, wi
    through ``simt`` on the same bf16 operands and with fp32 operands, the
    plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
    tokens (each GEMM, bound by the weights' bytes), each beside its bound,
    and the whole ``moe_block`` at both; then the ``{"kernels": [...]}``
-   line, the card line, and the ``{"ok": true, ...}`` line last.
+   line (K1's and K3's records also carry ``launches_by_path``, their
+   launches on each path that runs them), the card line, and the
+   ``{"ok": true, ...}`` line last.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -100,6 +132,7 @@ a kernel and its plain version, both fp32, to twice it.
 """
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -440,17 +473,25 @@ def phase_kernel_cases(torch, dev):
     return worst
 
 
+def csr_oracle(torch, g, x, nnz_chunk, magnitude=False):
+    """A'.x in fp64 by the plain CSR product on ``x``'s device (exact for
+    small integer values); with ``magnitude``, |A'|.|x|, the scale of the
+    summation bounds. The one oracle of the GCN phases."""
+    import numpy as np
+    from repro_torch.kernels.ref import csr_spmm_ref
+    vals = g.values.astype(np.float64)
+    if magnitude:
+        vals, x = np.abs(vals), x.abs()
+    return csr_spmm_ref(g.rowptr, g.colidx, vals, x.double(),
+                        nnz_chunk=nnz_chunk)
+
+
 def csr_check(torch, g, x, y, C, nnz_chunk, extra_levels=0):
     """Hold ``y`` (original row order) against the fp64 CSR oracle for A'.x,
     within the summation bound of the kernel's fp32 sums (``extra_levels``:
     K2's window partials)."""
-    import numpy as np
-    from repro_torch.kernels.ref import csr_spmm_ref
-    vals = g.values.astype(np.float64)
-    want = csr_spmm_ref(g.rowptr, g.colidx, vals, x.double(),
-                        nnz_chunk=nnz_chunk)
-    mag = csr_spmm_ref(g.rowptr, g.colidx, np.abs(vals), x.double().abs(),
-                       nnz_chunk=nnz_chunk)
+    want = csr_oracle(torch, g, x, nnz_chunk)
+    mag = csr_oracle(torch, g, x, nnz_chunk, magnitude=True)
     k = torch.as_tensor(summation_k(g, C, False) + extra_levels,
                         dtype=torch.float64, device=x.device)[:, None]
     return check_close("served", y, want, U * k * mag)
@@ -1094,6 +1135,468 @@ def phase_timing_resident(torch, small, engine):
         del want, bound
 
 
+# ------------------------------------------------------------ slice D
+TRAIN_PRESET = "100m"      # examples/train_gcn.py: 9 layers, ~106M params
+TRAIN_STEPS = 5
+MUTATE_GRAPH = "Arxiv"
+MUTATE_F = 2048
+MUTATE_DELTAS = 4          # each of MUTATE_EDGES inserts and deletes
+MUTATE_EDGES = 250
+
+
+def grad_bound_rel(C, layers):
+    """Relative bound for a gradient of the same parameters through K1
+    against the twin. Each aggregation's two fp32 sums differ from the
+    exact one by at most (C + 2) u of ``|A| @ |x|`` per row (C products in
+    a block, split partials, the add into zero); the forward and backward
+    passes run ``2 * layers`` aggregations, each adding at most its own
+    relative error, and the pair of paths doubles it. Held per parameter
+    against ``max |grad|`` of the twin's."""
+    return 2 * 2 * layers * (C + 2) * U
+
+
+class PlanCount:
+    """An aggregation operator that adds K1's launches during each call to
+    ``launches``: the launches of one plan (A' or A'^T)."""
+
+    def __init__(self, op):
+        self.op, self.launches = op, 0
+
+    def __call__(self, x):
+        from repro_torch.kernels.spmm_accel import spmm_block_slabs
+        before = spmm_block_slabs.launches
+        out = self.op(x)
+        self.launches += spmm_block_slabs.launches - before
+        return out
+
+
+def hold_grads(torch, label, got, want, rel):
+    """Every gradient within ``rel * max|want|``; returns the largest share
+    of the bound used."""
+    worst = 0.0
+    for i, (pg, pw) in enumerate(zip(got, want)):
+        for k in pw:
+            scale = float(pw[k].abs().max())
+            err = float((pg[k].float() - pw[k].float()).abs().max())
+            if err > rel * scale:
+                raise AssertionError(f"{label}: layer {i} {k} gradient off "
+                                     f"by {err:.3e}, bound {rel * scale:.3e}")
+            worst = max(worst, err / (rel * scale) if scale else 0.0)
+    return worst
+
+
+def phase_train(torch, dev, card_line):
+    """Slice D's training path: the ``100m`` preset (5,000 nodes, 9 layers,
+    ~106M fp32 parameters) through ``examples/train_gcn.py``'s loop on K1,
+    forward on A' and backward on A'^T. Returns K1's launches on the path."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.graph import csr_transpose
+    from repro_torch.examples import train_gcn as tg
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs)
+    from repro_torch.models.gcn import GraphOp, gcn_loss
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = tg.build_problem(TRAIN_PRESET, "gcn", "accel", dev)
+    g = prob.graph
+    fwd_plan, bwd_plan = prob.aggr.fwd.plan, prob.aggr.bwd.plan
+    C = fwd_plan.config.deg_bound
+    layers = len(prob.params)
+    n_params = sum(t.numel() for p in prob.params for t in p.values())
+    split = {name: int(p.partition.is_split.sum())
+             for name, p in (("A'", fwd_plan), ("A'^T", bwd_plan))}
+    log(f"train {TRAIN_PRESET}: {g.n_rows} nodes, {g.nnz} nnz after "
+        f"gcn_normalize, {layers} layers, {n_params / 1e6:.1f}M parameters; "
+        f"A' {fwd_plan.num_blocks} blocks, A'^T {bwd_plan.num_blocks} blocks,"
+        f" split blocks {split}; built in {time.perf_counter() - t0:.1f}s")
+    if split["A'^T"] == 0:
+        raise AssertionError("A'^T has no split rows: the in-degree hubs of "
+                             "the directed graph should make some")
+
+    # step 0: K1 against the twin on the card, from the same parameters
+    rel = grad_bound_rel(C, layers)
+    twin = GraphOp.build(g, backend="blocked", device=dev)
+    loss_k, grads_k = tg.loss_and_grads(prob.params, prob.aggr, prob.x,
+                                        prob.labels)
+    loss_t, grads_t = tg.loss_and_grads(prob.params, twin, prob.x,
+                                        prob.labels)
+    if abs(float(loss_k) - float(loss_t)) > rel * abs(float(loss_t)):
+        raise AssertionError(f"step 0 loss {float(loss_k)} vs twin "
+                             f"{float(loss_t)}")
+    share = hold_grads(torch, "step 0", grads_k, grads_t, rel)
+    log(f"train step 0: loss K1 {float(loss_k):.7f}, twin "
+        f"{float(loss_t):.7f}; all {sum(len(p) for p in grads_k)} gradients "
+        f"within {rel:.2e} x max|grad| of the twin's (largest share of the "
+        f"bound {share:.3e})")
+    del twin, grads_k, grads_t
+
+    # one backward aggregation against the CSR oracle of A'^T
+    gt = csr_transpose(g)
+    up = torch.randn((g.n_rows, 4096), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(11))
+    got = prob.aggr.bwd(up)
+    want = csr_oracle(torch, gt, up, None)
+    mag = csr_oracle(torch, gt, up, None, magnitude=True)
+    k = torch.as_tensor(summation_k(gt, C, False), dtype=torch.float64,
+                        device=dev)[:, None]
+    err = check_close("bwd(g) vs A'^T oracle", got, want, U * k * mag)
+    log(f"train: bwd(g) at F=4096 within the summation bound of the fp64 "
+        f"CSR oracle of A'^T, max err {err:.2e}")
+    del up, got, want, mag, k
+
+    # the main path: SGD steps through the trainer's loop
+    fwd, bwd = PlanCount(prob.aggr.fwd), PlanCount(prob.aggr.bwd)
+    counted = GraphOp(fwd=fwd, bwd=bwd)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    per_step = []
+
+    def on_step(s, _loss):
+        events[s + 1].record()
+        per_step.append(spmm_block_slabs.launches)
+
+    spmm_block_slabs.launches = 0          # training path starts here
+    spmm_block_slabs.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+    events[0].record()
+    losses = tg.train(prob.params, counted, prob.x, prob.labels,
+                      variant="gcn", lr=1e-2, steps=TRAIN_STEPS,
+                      on_step=on_step)
+    torch.cuda.synchronize()
+    launches = spmm_block_slabs.launches   # training path ends here
+    by_instance = dict(spmm_block_slabs.launches_by_instance)
+    step_ms = sorted(events[i].elapsed_time(events[i + 1])
+                     for i in range(TRAIN_STEPS))
+    steps_launches = [b - a for a, b in zip([0] + per_step, per_step)]
+    log(f"train: {TRAIN_STEPS} SGD steps, losses "
+        + ", ".join(f"{v:.6f}" for v in losses)
+        + f"; K1 launches per step {steps_launches} (A' {fwd.launches}, "
+        f"A'^T {bwd.launches}); by instance {by_instance}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite or not falling")
+    if steps_launches != [2 * layers] * TRAIN_STEPS or \
+            fwd.launches != layers * TRAIN_STEPS or \
+            bwd.launches != layers * TRAIN_STEPS:
+        raise AssertionError(f"K1 launches per step {steps_launches}, A' "
+                             f"{fwd.launches}, A'^T {bwd.launches}: expected "
+                             f"{layers} + {layers} per step")
+
+    # where a step's device time goes: K1 against everything else
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tg.loss_and_grads(prob.params, prob.aggr, prob.x, prob.labels)
+        torch.cuda.synchronize()
+    rows = [(evt.self_device_time_total / 1e3, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    k1_ms = sum(ms for ms, key in rows if "slot_order" in key)
+    median = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if busy > 0:
+        top = sorted(rows, reverse=True)[:4]
+        log(f"train step profile: device busy {busy:.2f} ms, K1 {k1_ms:.2f} "
+            f"ms ({k1_ms / busy * 100:.1f}% of device time); top: "
+            + "; ".join(f"{ms:.2f} ms {key[:50]}" for ms, key in top))
+        k1_text = f"K1 {k1_ms:.2f} ms of it by the profiler"
+    else:
+        k1_ms = None
+        k1_text = "K1's share not measured (no device time profiled)"
+    log(f"train {TRAIN_PRESET} step: median {median:.2f} ms of "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)} ms (CUDA events); "
+        f"{k1_text}; peak device memory {peak:.2f} GiB; {card_line}")
+
+    # a checkpoint of the final parameters restores bit for bit
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(TRAIN_STEPS, prob.params)
+        back = mgr.restore(mgr.latest_step(), prob.params)
+    for p, q in zip(prob.params, back):
+        for key in p:
+            if not (q[key].device == p[key].device
+                    and torch.equal(q[key], p[key])):
+                raise AssertionError(f"checkpoint: {key} not restored")
+    with torch.no_grad():
+        la = float(gcn_loss(prob.params, prob.aggr, prob.x, prob.labels))
+        lb = float(gcn_loss(back, prob.aggr, prob.x, prob.labels))
+    # split rows of A' add in arrival order (fp32 RED): the same parameters
+    # give the same loss up to that order
+    tol = 0.0 if split["A'"] == 0 else rel * abs(la)
+    if abs(la - lb) > tol:
+        raise AssertionError(f"restored loss {lb} vs {la}")
+    log(f"train: checkpoint of step {TRAIN_STEPS} restored bit for bit, "
+        f"loss {la:.7f} / {lb:.7f}")
+    del prob, back, counted, fwd, bwd
+
+    # sage and gin at the tiny preset, K1 against the twin
+    for variant in ("sage", "gin"):
+        small = tg.build_problem("tiny", variant, "accel", dev)
+        twin = GraphOp.build(small.graph, backend="blocked", device=dev)
+        nl = len(small.params)
+        rel_v = grad_bound_rel(C, nl)
+        lk, gk = tg.loss_and_grads(small.params, small.aggr, small.x,
+                                   small.labels, variant)
+        lt, gtw = tg.loss_and_grads(small.params, twin, small.x,
+                                    small.labels, variant)
+        if abs(float(lk) - float(lt)) > rel_v * abs(float(lt)):
+            raise AssertionError(f"{variant}: loss {float(lk)} vs twin "
+                                 f"{float(lt)}")
+        s = hold_grads(torch, variant, gk, gtw, rel_v)
+        log(f"train tiny {variant}: loss K1 {float(lk):.7f}, twin "
+            f"{float(lt):.7f}, gradients within {rel_v:.2e} x max|grad| "
+            f"(largest share {s:.3e})")
+    return {"launches": launches, "step_ms": median, "k1_ms": k1_ms,
+            "peak_gib": peak}
+
+
+def chain_deltas(g, seed, integer, uniform=False):
+    """MUTATE_DELTAS deltas applied in turn from ``g``: each MUTATE_EDGES
+    inserts at random and MUTATE_EDGES deletes, one existing edge from each
+    of MUTATE_EDGES distinct non-empty rows, or with ``uniform`` drawn
+    uniformly over the edges. (Uniform deletes land mostly on the hub rows,
+    re-emit their split blocks at every repair and may trip the
+    fragmentation guard.) Returns the deltas and the graphs of the chain
+    (``g`` first)."""
+    import numpy as np
+    from repro_torch.core.plan_repair import EdgeDelta
+    rng = np.random.default_rng(seed)
+    graphs, deltas = [g], []
+    for _ in range(MUTATE_DELTAS):
+        cur = graphs[-1]
+        k = MUTATE_EDGES
+        deg = np.diff(cur.rowptr)
+        if uniform:
+            eids = rng.choice(cur.nnz, k, replace=False)
+        else:
+            rows = rng.choice(np.flatnonzero(deg > 0), k, replace=False)
+            eids = cur.rowptr[rows] + rng.integers(0, deg[rows])
+        vals = (rng.integers(1, 4, k) if integer
+                else rng.uniform(0.01, 0.2, k))
+        d = EdgeDelta(
+            insert_src=rng.integers(0, cur.n_rows, k),
+            insert_dst=rng.integers(0, cur.n_cols, k),
+            insert_val=vals.astype(np.float32),
+            delete_src=np.searchsorted(cur.rowptr, eids, side="right") - 1,
+            delete_dst=cur.colidx[eids],
+            on_duplicate="replace", on_missing="ignore")
+        deltas.append(d)
+        graphs.append(d.apply(cur))
+    return deltas, graphs
+
+
+def served_ms(torch, engine, name, x, reps=3):
+    """Median host time of ``serve_one`` (the engine synchronizes before it
+    answers)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.serve_one(name, x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def phase_mutate(torch, dev, card_line):
+    """Slice D's mutation path: the Arxiv analogue in an ``accel`` engine
+    (K1) and an ``auto`` engine (K3, the hbm regime at F=2048), 4 deltas
+    through ``mutate()`` with reads racing them, then the final version
+    against a fresh build; the same on an integer-valued copy, exactly, and
+    on that copy again with edge-uniform deletes, where rebuilds are logged
+    and not asserted absent. Returns the K1 and K3 launches of the path."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph, gcn_normalize
+    from repro_torch.core.plan_cache import build_partition_plan
+    from repro_torch.core.plan_repair import delta_chain_hash, repair_plan
+    from repro_torch.data.graphs import make_benchmark_graph
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
+    from repro_torch.serve.graph_engine import GraphServeEngine
+
+    raw, _ = make_benchmark_graph(MUTATE_GRAPH, seed=1)
+    norm = gcn_normalize(raw)
+    ints = CSRGraph(norm.rowptr, norm.colidx, np.random.default_rng(2)
+                    .integers(1, 4, norm.nnz).astype(np.float32),
+                    norm.n_cols)
+    engines = {"accel": GraphServeEngine(device=dev, backend="accel"),
+               "auto": GraphServeEngine(device=dev, backend="auto")}
+    kernel_of = {"accel": ops.spmm_accel, "auto": ops.spmm_pallas_hbm}
+    C = engines["accel"].config.deg_bound
+    nnz_chunk = 1 << 17
+    gen = torch.Generator(device=dev).manual_seed(21)
+    kernels = {"K1": spmm_block_slabs, "K3": spmm_block_slabs_hbm}
+    compared = {"K1": 0, "K3": 0}
+    for fn in kernels.values():            # mutation path starts here
+        fn.launches = 0
+        fn.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+    t_main = time.perf_counter()
+    for label, g0, integer, uniform in (
+            ("float", norm, False, False), ("integer", ints, True, False),
+            ("integer-uniform", ints, True, True)):
+        if integer:
+            x = torch.randint(-4, 5, (g0.n_cols, MUTATE_F), generator=gen,
+                              device=dev).float()
+        else:
+            x = torch.randn((g0.n_cols, MUTATE_F), generator=gen,
+                            device=dev)
+        deltas, chain = chain_deltas(g0, seed=31, integer=integer,
+                                     uniform=uniform)
+        name = f"{MUTATE_GRAPH}-{label}"
+        for be, eng in engines.items():
+            t0 = time.perf_counter()
+            eng.register_graph(name, g0)
+            t_reg = time.perf_counter() - t0
+            y = eng.serve_one(name, x)
+            if integer:
+                want = csr_oracle(torch, g0, x, nnz_chunk)
+                if not torch.equal(y.double(), want):
+                    raise AssertionError(f"{be} {label}: v0 not exact")
+            else:
+                csr_check(torch, g0, x, y, C, nnz_chunk)
+            before = served_ms(torch, eng, name, x)
+
+            # 4 deltas through mutate(), 2 readers submitting meanwhile
+            answers, stop = [], threading.Event()
+
+            def reader():
+                for _ in range(3):
+                    if stop.is_set():
+                        return
+                    answers.append(eng.submit(name, x).result(timeout=600))
+
+            readers = [threading.Thread(target=reader) for _ in range(2)]
+            for th in readers:
+                th.start()
+            infos, t_mut = [], []
+            for d in deltas:                # one published version each
+                t0 = time.perf_counter()
+                infos.append(eng.mutate(name, d).result(timeout=600))
+                t_mut.append(time.perf_counter() - t0)
+            stop.set()
+            for th in readers:
+                th.join(timeout=600)
+                if th.is_alive():
+                    raise AssertionError("a reader thread did not finish")
+            st = eng.stats()
+            if eng.graph_version(name) != MUTATE_DELTAS or (
+                    not uniform and (not all(i["repaired"] for i in infos)
+                                     or st["plan_rebuilds"] != 0)):
+                raise AssertionError(f"{be} {label}: {infos}, rebuilds "
+                                     f"{st['plan_rebuilds']}")
+            seen = set()
+            for y in answers:
+                seen.add(match_version(torch, chain, x, y, C, nnz_chunk,
+                                       integer))
+            after = served_ms(torch, eng, name, x)
+            final = eng.serve_one(name, x)
+            # the final version against a fresh build through the same
+            # kernel, and against the oracle
+            g_end = chain[-1]
+            t0 = time.perf_counter()
+            fresh = build_partition_plan(g_end, eng.config, device=dev)
+            torch.cuda.synchronize()
+            t_fresh = time.perf_counter() - t0
+            held = {k: fn.launches for k, fn in kernels.items()}
+            fy = kernel_of[be](fresh.slabs, x, fresh.n_rows)[fresh.inv_perm]
+            torch.cuda.synchronize()
+            for k, fn in kernels.items():    # a comparison, not the path
+                compared[k] += fn.launches - held[k]
+            if integer:
+                want = csr_oracle(torch, g_end, x, nnz_chunk)
+                if not (torch.equal(final, fy)
+                        and torch.equal(final.double(), want)):
+                    raise AssertionError(f"{be} {label}: final version not "
+                                         f"exact")
+                err = 0.0
+            else:
+                csr_check(torch, g_end, x, final, C, nnz_chunk)
+                k = torch.as_tensor(summation_k(g_end, C, False),
+                                    dtype=torch.float64, device=dev)[:, None]
+                mag = csr_oracle(torch, g_end, x, nnz_chunk, magnitude=True)
+                err = check_close(f"{be} repaired vs fresh", final, fy,
+                                  2 * U * k * mag)
+                del k, mag
+            log(f"mutate {be} {label}: {MUTATE_DELTAS} deltas x "
+                f"({MUTATE_EDGES} inserts + {MUTATE_EDGES} deletes) = "
+                f"{sum(d.size for d in deltas)} edges of {g0.nnz} nnz; "
+                f"versions {[i['version'] for i in infos]}, dirty rows "
+                f"{[i['dirty_rows'] for i in infos]}, repaired "
+                f"{[i['repaired'] for i in infos]}, repairs "
+                f"{st['plan_repairs']}, rebuilds {st['plan_rebuilds']}; "
+                f"{len(answers)} racing reads matched versions "
+                f"{sorted(seen)}; final vs fresh build max err {err:.2e}; "
+                f"register {t_reg:.2f}s, mutate() to published "
+                f"{', '.join(f'{t:.3f}' for t in t_mut)}s, fresh build "
+                f"{t_fresh:.2f}s; served F={MUTATE_F} {before:.1f} ms "
+                f"before, {after:.1f} ms after; {card_line}")
+            for v, i in enumerate(infos, 1):
+                if not i["repaired"]:
+                    log(f"mutate {be} {label}: version {v} rebuilt: "
+                        f"{i['reason']}")
+            del answers, fresh, fy, final, y
+        del x, chain, deltas
+
+    t_main = time.perf_counter() - t_main
+    launches = {k: fn.launches - compared[k]              # path ends
+                for k, fn in kernels.items()}
+    routed = {"K1": engines["accel"].stats()["routed_resident"]
+              + engines["auto"].stats()["routed_resident"],
+              "K3": engines["auto"].stats()["routed_hbm"]}
+    log(f"mutation path: launches {launches}, engines' dispatches {routed}; "
+        f"{t_main:.1f}s including the oracle checks")
+    if launches != routed or min(launches.values()) < 1:
+        raise AssertionError(f"mutation path launches {launches} differ "
+                             f"from the dispatches {routed}")
+    for eng in engines.values():
+        eng.close()
+
+    # one delta's two host steps against a fresh build, on the host clock
+    plan = build_partition_plan(norm, engines["accel"].config, device=dev)
+    deltas, chain = chain_deltas(norm, seed=31, integer=False)
+    d = deltas[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_new = d.apply(norm)
+    t_apply = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pv = repair_plan(plan, norm, g_new, d.touched_rows(),
+                     graph_hash=delta_chain_hash(plan.graph_hash, d))
+    torch.cuda.synchronize()
+    t_rep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_partition_plan(chain[1], engines["accel"].config, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"mutate: one delta of {d.size} edges: EdgeDelta.apply "
+        f"(csr_apply_edge_delta) {t_apply * 1e3:.1f} ms, repair_plan "
+        f"{t_rep * 1e3:.1f} ms ({pv.reason}); a fresh build of the "
+        f"post-delta plan {t_build * 1e3:.1f} ms; {card_line}")
+    return launches
+
+
+def match_version(torch, chain, x, y, C, nnz_chunk, integer):
+    """The index of the version in ``chain`` whose product ``y`` equals
+    (exactly on integer graphs, else within the summation bound); raises
+    when none does."""
+    for v in range(len(chain) - 1, -1, -1):
+        g = chain[v]
+        want = csr_oracle(torch, g, x, nnz_chunk)
+        if integer:
+            ok = torch.equal(y.double(), want)
+        else:
+            mag = csr_oracle(torch, g, x, nnz_chunk, magnitude=True)
+            k = torch.as_tensor(summation_k(g, C, False), dtype=torch.float64,
+                                device=x.device)[:, None]
+            ok = bool(((y.double() - want).abs() <= U * k * mag).all())
+        if ok:
+            return v
+    raise AssertionError("a read racing the mutations matches no version")
+
+
 # ------------------------------------------------------------ slice C1
 # K4 edge cases: rows per expert in blocks (0 = an expert with no rows),
 # trailing blocks past the last expert (clipped to E-1, zero rows), m_tile.
@@ -1685,11 +2188,24 @@ def main():
     del graphs, engine, small, small_engine
     gc.collect()
     torch.cuda.empty_cache()                # the GCN phases' memory goes
+    peak = torch.cuda.max_memory_allocated()  # phase 8 resets the peak
+    train = phase_train(torch, dev, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mutate = phase_mutate(torch, dev, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1["launches_by_path"] = {"serve": launches_a,
+                              "train": train["launches"],
+                              "mutate": mutate["K1"]}
+    k3["launches_by_path"] = {"routed": launches["K3"],
+                              "mutate": mutate["K3"]}
     k4_err = phase_k4_cases(torch, dev)
     p, p32, xs, x32, metas, k4_launches = phase_moe(torch, dev)
     k4 = phase_timing_k4(torch, p, p32, xs, x32, metas, k4_launches, k4_err)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; total {time.perf_counter() - t0:.1f}s")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    log(f"peak device memory {peak / 2**30:.2f} GiB; total "
+        f"{time.perf_counter() - t0:.1f}s")
     records = [k1, k2, k3, k4]
     print(json.dumps({"kernels": records}))
     print(card_line)

@@ -124,6 +124,11 @@ class PartitionPlan:
     coo_row: torch.Tensor
     coo_col: torch.Tensor
     coo_val: torch.Tensor
+    # monotone stamp in a graph's plan chain (0 = first build; incremental
+    # repair / mutation bumps it — see core/plan_repair.py). The content
+    # hash in ``key`` still changes with every version: the version is the
+    # lineage, the hash is the identity.
+    version: int = 0
 
     @property
     def graph_hash(self) -> str:
@@ -381,6 +386,24 @@ class PlanCache:
         self._spill_evicted(evicted)
         return plan
 
+    def apply_delta(self, key, g_old: CSRGraph, delta, *,
+                    churn_threshold: float = 0.25):
+        """Repair the plan under ``key`` for an edge delta and publish the
+        next version in one step. ``g_old`` is the pre-delta graph the key
+        was built from (rebuilt here if the plan was evicted meanwhile).
+        Returns ``(g_new, PlanVersion)`` — the caller re-binds its
+        graph_id to ``pv.plan.key`` and pushes the new graph content.
+        """
+        from .plan_repair import apply_and_repair   # circular at module load
+        plan = self.get_by_key(
+            key, lambda: build_partition_plan(g_old, key[1],
+                                              graph_hash=key[0],
+                                              device=self.device))
+        g_new, pv = apply_and_repair(plan, g_old, delta,
+                                     churn_threshold=churn_threshold)
+        self.publish(pv.plan, retire_key=key)
+        return g_new, pv
+
     def keys(self):
         with self._lock:
             return list(self._plans.keys())
@@ -400,6 +423,7 @@ class PlanCache:
             "n_rows": np.int64(plan.n_rows),
             "n_cols": np.int64(plan.n_cols),
             "nnz": np.int64(plan.nnz),
+            "version": np.int64(plan.version),
             "slab_R": np.int64(plan.slabs["R"]),
             "slab_C": np.int64(plan.slabs["C"]),
             "bp_meta": bp.meta,
@@ -460,7 +484,10 @@ class PlanCache:
                 return PartitionPlan(
                     key=key,
                     n_rows=int(z["n_rows"]), n_cols=int(z["n_cols"]),
-                    nnz=int(z["nnz"]), slabs=slabs, partition=bp, **staged)
+                    nnz=int(z["nnz"]), slabs=slabs, partition=bp,
+                    # pre-versioning spills reload as version 0
+                    version=int(z["version"]) if "version" in z else 0,
+                    **staged)
         except Exception:       # corrupt/partial/alien spill (BadZipFile,
             return None         # KeyError, OSError, ...): rebuild instead
 

@@ -1,0 +1,1 @@
+"""Command-line programs of the port (``python -m repro_torch.examples.<name>``)."""

@@ -9,6 +9,7 @@ Serving architecture (scheduler -> flush -> dispatch)::
                                flush (size >= max_batch_requests, or the
                                oldest request is max_wait_ms old)
                                                                |
+                                  _flush: reads first, then mutations;
                                   _flush_reads: group requests BY PLAN
                                   (graph), fuse same-graph features along
                                   the F axis, chunk distinct graphs into
@@ -46,8 +47,12 @@ Backends: ``auto`` routes every fused dispatch by the reference's policy
 threshold; ``windowed`` and ``hbm`` force K2 and K3; ``accel`` (the
 default) is K1 with no routing; ``blocked`` is the PyTorch twin. Each
 dispatch counts under the regime it ran (``routed_*`` in ``stats()``).
-Edge mutation and the partition autotuner arrive with later slices
-(ROADMAP queue 1).
+
+Live edge mutation (``mutate``) rides the same admission queue: a flush
+dispatches its reads against the pinned pre-publish plan versions, then
+applies its deltas per graph in arrival order, repairs the plan once
+(``core/plan_repair.py``) and publishes the next version. The partition
+autotuner arrives with a later slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from ..core.plan_cache import (
     DeviceLike, PartitionConfig, PartitionPlan, PlanCache, _config_tag,
     build_partition_plan, graph_content_hash, resolve_device,
 )
+from ..core.plan_repair import EdgeDelta, delta_chain_hash, repair_plan
 from ..kernels.router import RoutingDecision
 from ..kernels.spmm_batched import bucket_blocks, spmm_batched
 from .scheduler import BatchScheduler, ClassSpec, WorkItem
@@ -125,6 +131,7 @@ class GraphServeEngine:
         max_pending: int = 256,
         feature_bucket: bool = True,
         classes: Optional[Sequence[ClassSpec]] = None,
+        repair_churn_threshold: float = 0.25,
     ):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {'|'.join(_BACKENDS)}")
@@ -146,10 +153,19 @@ class GraphServeEngine:
         # flush composition under concurrent traffic — bucketing keeps the
         # dispatched-shape set logarithmic instead of one shape per mix
         self.feature_bucket = feature_bucket
+        # above this fraction of rows dirtied by a delta, incremental plan
+        # repair falls back to a full rebuild (see core.plan_repair)
+        self.repair_churn_threshold = repair_churn_threshold
         self._graphs: Dict[str, CSRGraph] = {}
         self._keys: Dict[str, tuple] = {}  # graph_id -> plan key (hashed once)
-        # _bind_lock guards the two maps above as ONE atomic binding
+        self._versions: Dict[str, int] = {}  # graph_id -> published version
+        # _bind_lock guards the three maps above as ONE atomic binding:
+        # readers (plan_for, _validate-time lookups) must never observe a
+        # graph from version v+1 paired with the key of version v
         self._bind_lock = threading.Lock()
+        # serializes mutation application + publish per engine; reads never
+        # take it (they pin a version instead)
+        self._mutate_lock = threading.Lock()
         # one flush absorbs several dispatches' worth of requests so a
         # deadline-triggered flush under load still fills whole batches
         self.scheduler = BatchScheduler(
@@ -174,6 +190,11 @@ class GraphServeEngine:
         self.backend_dispatches: Dict[str, int] = {
             "resident": 0, "windowed": 0, "hbm": 0, "blocked": 0}
         self.last_decision: Optional[RoutingDecision] = None
+        # mutation-path counters (versioned plan lifecycle)
+        self.mutations_applied = 0   # mutate() requests resolved
+        self.mutation_edges = 0      # edge inserts+deletes applied
+        self.plan_repairs = 0        # publishes served by incremental repair
+        self.plan_rebuilds = 0       # publishes that fell back to full build
         # per-plan dispatch wall times: key -> deque of (seconds, exact)
         # where exact=True means the dispatch held ONLY this plan (a fused
         # multi-graph dispatch records its per-plan SHARE, flagged inexact)
@@ -185,7 +206,8 @@ class GraphServeEngine:
         """Register (and warm the plan for) a graph under ``graph_id``.
 
         Re-registering the same id with identical content is a no-op (cache
-        hit); different content replaces the binding.
+        hit); different content replaces the binding and continues the id's
+        version chain.
         """
         if normalize:
             g = gcn_normalize(g)
@@ -195,8 +217,19 @@ class GraphServeEngine:
             key, lambda: build_partition_plan(g, self.config, graph_hash=h,
                                               device=self.device))
         with self._bind_lock:
+            prev_key = self._keys.get(graph_id)
+            prev_ver = self._versions.get(graph_id)
+            if prev_key == plan.key and prev_ver is not None:
+                version = prev_ver          # idempotent re-register
+            elif prev_ver is not None:
+                # content replacement continues the id's version chain so
+                # version invalidation stays monotone
+                version = max(plan.version, prev_ver + 1)
+            else:
+                version = plan.version
             self._graphs[graph_id] = g
             self._keys[graph_id] = plan.key
+            self._versions[graph_id] = version
         return plan
 
     def register_subgraph(self, g: CSRGraph, prefix: str = "sub",
@@ -215,7 +248,7 @@ class GraphServeEngine:
         return graph_id
 
     def unregister_graph(self, graph_id: str) -> bool:
-        """Drop a graph's binding (id -> graph and plan key).
+        """Drop a graph's binding (id -> graph, plan key and version).
 
         The plan itself stays in the LRU cache until evicted — a later
         ``register_subgraph`` of the same content re-binds without a
@@ -227,6 +260,7 @@ class GraphServeEngine:
             known = graph_id in self._graphs
             self._graphs.pop(graph_id, None)
             self._keys.pop(graph_id, None)
+            self._versions.pop(graph_id, None)
         return known
 
     def submit_gather(self, graph_id: str, x: torch.Tensor,
@@ -258,6 +292,10 @@ class GraphServeEngine:
         inner.add_done_callback(_chain)
         return outer
 
+    def graph_ids(self) -> List[str]:
+        with self._bind_lock:
+            return list(self._graphs)
+
     def plan_for(self, graph_id: str) -> PartitionPlan:
         """Resolve a registered graph's plan WITHOUT rehashing its arrays —
         the content hash was paid once at registration; a rebuild only
@@ -269,6 +307,11 @@ class GraphServeEngine:
         return self.cache.get_by_key(
             key, lambda: build_partition_plan(
                 g, key[1], graph_hash=key[0], device=self.device))
+
+    def graph_version(self, graph_id: str) -> int:
+        """Current published version of a registered graph's plan chain."""
+        with self._bind_lock:
+            return self._versions[graph_id]
 
     def close(self) -> None:
         """Stop the background scheduler (drains anything still queued)."""
@@ -306,6 +349,31 @@ class GraphServeEngine:
         """
         self._validate(graph_id, x)
         return self.scheduler.submit((graph_id, x), block=block,
+                                     klass=klass, tenant=tenant).future
+
+    def mutate(self, graph_id: str, delta: EdgeDelta, *,
+               block: bool = True, klass: str = "default",
+               tenant: Optional[str] = None) -> Future:
+        """Admit a batched edge delta against a registered graph.
+
+        Returns a ``Future`` resolving to a dict
+        ``{"graph_id", "version", "repaired", "reason", "dirty_rows"}``
+        once the new plan version is PUBLISHED — later submits observe the
+        mutated graph. Mutations ride the same admission queue as reads:
+        a flush dispatches its reads first (against the pre-publish
+        version, which they pin for the duration of the kernel call), then
+        applies that flush's deltas per graph in arrival order and
+        publishes once per graph. In-flight reads are therefore never
+        blocked and never torn — every answer is consistent with either
+        the pre- or post-publish version.
+        """
+        with self._bind_lock:
+            if graph_id not in self._graphs:
+                raise KeyError(f"graph {graph_id!r} not registered "
+                               f"(known: {sorted(self._graphs)})")
+        if not isinstance(delta, EdgeDelta):
+            raise TypeError(f"delta must be an EdgeDelta, got {type(delta)!r}")
+        return self.scheduler.submit((graph_id, delta, "mutate"), block=block,
                                      klass=klass, tenant=tenant).future
 
     def serve_one(self, graph_id: str, x: torch.Tensor) -> torch.Tensor:
@@ -368,15 +436,55 @@ class GraphServeEngine:
             wait_s += now - item.t_enqueue
         return answers, wait_s
 
+    @staticmethod
+    def _is_mutation(item: WorkItem) -> bool:
+        """Mutation payloads are ``(graph_id, EdgeDelta, "mutate")`` — the
+        marker is in slot 2 so read payloads are never mistaken for
+        deltas."""
+        p = item.payload
+        return len(p) > 2 and p[2] == "mutate"
+
     def _flush(self, items: List[WorkItem]) -> None:
-        """Scheduler flush callback: group reads by plan, fuse, dispatch in
-        chunks.
+        """Scheduler flush callback: reads first, then mutations.
+
+        Reads dispatch against the flush's pre-publish plan versions;
+        mutations for the same graph coalesce and publish ONCE at the end
+        of the flush, so a mutate never blocks the reads it arrived with.
+        A failing read dispatch still lets this flush's mutations publish
+        (and vice versa a bad delta fails only its own graph's mutation
+        items, never the reads).
+        """
+        reads = [it for it in items if not self._is_mutation(it)]
+        mutations = [it for it in items if self._is_mutation(it)]
+        read_exc: Optional[BaseException] = None
+        if reads:
+            try:
+                self._flush_reads(reads)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                read_exc = e
+        if mutations:
+            order, groups = self._group_by_graph(mutations)
+            for gid in order:
+                grp = groups[gid]
+                try:
+                    self._apply_mutation(gid, grp)
+                except BaseException as e:  # noqa: BLE001 — isolate per graph
+                    for it in grp:
+                        it.fail(e)
+        if read_exc is not None:
+            raise read_exc
+
+    def _flush_reads(self, items: List[WorkItem]) -> None:
+        """Group reads by plan, fuse, dispatch in chunks.
 
         Requests naming the same graph fuse along the feature axis (one slab
         gather serves all of them); distinct graphs chunk into fused
         dispatches of up to ``max_graphs_per_batch`` in order of first
         appearance. Every plan used is version-pinned for the duration of
-        its dispatches.
+        its dispatches: a concurrent publish retires the old version but
+        cannot reclaim it until the last in-flight dispatch unpins. Each
+        dispatch synchronizes its stream before it answers, so no kernel
+        still reads a version's tensors once its pin drains.
         """
         order, groups = self._group_by_graph(items)
         plans = {gid: self.plan_for(gid) for gid in order}
@@ -394,6 +502,69 @@ class GraphServeEngine:
         finally:
             for k in pinned:
                 self.cache.unpin(k)
+
+    # --------------------------------------------------------------- mutation
+    def _apply_mutation(self, gid: str, grp: List[WorkItem]) -> None:
+        """Apply one flush's coalesced deltas for ``gid`` and publish once.
+
+        Deltas apply SEQUENTIALLY in arrival order (never merged: a delete
+        in delta k must see the graph as delta k-1 left it), the plan is
+        repaired once against the combined touched-row set, and the new
+        version publishes atomically — the old version is retired and
+        reclaimed when its last pinned reader drains. The repair's
+        ``torch.cat`` of the slabs runs on this (the scheduler's) thread's
+        current stream, the stream every dispatch of the engine runs on.
+        """
+        with self._mutate_lock:
+            with self._bind_lock:
+                g_old = self._graphs[gid]
+                old_key = self._keys[gid]
+                cur_ver = self._versions[gid]
+            plan_old = self.plan_for(gid)
+            g_new = g_old
+            touched: List[np.ndarray] = []
+            n_edges = 0
+            gh = plan_old.graph_hash
+            for it in grp:
+                delta: EdgeDelta = it.payload[1]
+                g_new = delta.apply(g_new)
+                touched.append(delta.touched_rows())
+                n_edges += delta.size
+                gh = delta_chain_hash(gh, delta)
+            pv = repair_plan(
+                plan_old, g_old, g_new,
+                np.unique(np.concatenate(touched)) if touched
+                else np.empty(0, np.int64),
+                churn_threshold=self.repair_churn_threshold,
+                graph_hash=gh)
+            # the engine owns the id's version CHAIN; the repair stamp is
+            # relative to the plan object, which may have been rebuilt (at
+            # version 0) after an eviction
+            pv.version = cur_ver + 1
+            pv.plan.version = cur_ver + 1
+            self._publish_version(gid, g_new, pv.plan, old_key)
+            with self._counters_lock:
+                self.mutations_applied += len(grp)
+                self.mutation_edges += n_edges
+                if pv.repaired:
+                    self.plan_repairs += 1
+                else:
+                    self.plan_rebuilds += 1
+        result = {"graph_id": gid, "version": pv.version,
+                  "repaired": pv.repaired, "reason": pv.reason,
+                  "dirty_rows": pv.dirty_rows}
+        for it in grp:
+            it.complete(dict(result))
+
+    def _publish_version(self, gid: str, g_new: CSRGraph,
+                         plan: PartitionPlan, old_key: tuple) -> None:
+        """Cache publish first (so plan_for never misses), THEN atomically
+        re-bind the id."""
+        self.cache.publish(plan, retire_key=old_key)
+        with self._bind_lock:
+            self._graphs[gid] = g_new
+            self._keys[gid] = plan.key
+            self._versions[gid] = plan.version
 
     def _dispatch(self, batch: List[Tuple[str, List[WorkItem],
                                           PartitionPlan]]) -> None:
@@ -547,5 +718,10 @@ class GraphServeEngine:
             avg_request_latency_s=(
                 self.total_request_latency_s / self.requests_served
                 if self.requests_served else 0.0),
+            # versioned plan lifecycle: streaming mutations
+            mutations_applied=self.mutations_applied,
+            mutation_edges=self.mutation_edges,
+            plan_repairs=self.plan_repairs,
+            plan_rebuilds=self.plan_rebuilds,
         )
         return s

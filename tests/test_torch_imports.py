@@ -37,7 +37,7 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
     have = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")}
     for mod in ("core.graph", "core.partition", "core.plan_cache",
-                "core.spmm", "data.graphs", "kernels.ref", "kernels.ops",
+                "core.plan_repair", "checkpoint.manager", "core.spmm", "data.graphs", "kernels.ref", "kernels.ops",
                 "kernels.spmm_accel", "kernels.spmm_batched",
                 "kernels.router", "kernels.spmm_hbm",
                 "kernels.grouped_matmul", "models.layers", "models.gcn",

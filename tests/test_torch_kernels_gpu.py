@@ -21,13 +21,22 @@ the simt instance, the tensor cores' order in the wgmma instance, any
 order in the plain version), so the two differ by at most twice that;
 integer inputs with |x|, |w| <= 2 keep every partial sum below 2**24, so
 every sum is exact in any order. Each K4 case asserts which instance ran.
+
+Training and mutation run K1 (and K3) on plans the serving path does not
+make: ``GraphOp``'s backward launches K1 on the A'^T plan (exact against
+the plain version and the transpose's CSR product on integer graphs, and
+a two-layer GCN's loss and gradients within a stated bound of the twin's),
+and repaired and chain-repaired plans (masked lanes, appended blocks)
+through K1 and K3 must equal a fresh build's output bit for bit on
+integer graphs.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.graph import CSRGraph, gcn_normalize
+from repro_torch.core.graph import CSRGraph, csr_transpose, gcn_normalize
 from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
+from repro_torch.core.plan_repair import EdgeDelta, apply_and_repair
 from repro_torch.data.graphs import make_power_law_graph
 from repro_torch.kernels.spmm_accel import (K1_F_TILE, gather_instance,
                                             spmm_block_slabs,
@@ -39,6 +48,8 @@ from repro_torch.kernels.grouped_matmul import (_instance, grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
                                           spmm_block_slabs_hbm_plain)
+from repro_torch.kernels.ops import spmm_accel, spmm_pallas_hbm
+from repro_torch.models.gcn import GraphOp, gcn_loss, init_gcn
 from repro_torch.models.moe import _route, block_dispatch, init_moe, moe_block
 
 pytestmark = pytest.mark.gpu
@@ -458,3 +469,138 @@ def test_moe_block_launches_k4_three_times(cuda, m_tile, instance):
     g = _k4_within_pair_bound(xs, p["wg"], be, m_tile, instance).to(x.dtype)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
     _k4_within_pair_bound(h, p["wo"], be, m_tile, instance)
+
+
+# ------------------------------------------------- training and mutation
+
+def _dense(g, cuda):
+    a = torch.zeros((g.n_rows, g.n_cols), dtype=torch.float64, device=cuda)
+    rows = torch.from_numpy(np.repeat(np.arange(g.n_rows), np.diff(g.rowptr)))
+    a.index_put_((rows.to(cuda), torch.from_numpy(g.colidx).to(cuda)),
+                 torch.from_numpy(g.values.astype(np.float64)).to(cuda),
+                 accumulate=True)
+    return a
+
+
+@pytest.mark.parametrize("F", [1, 100, 2048])
+def test_graph_op_backward_is_k1_on_the_transpose(cuda, F):
+    """An integer-valued directed graph with split rows in both A and A^T:
+    the gradient of ``sum(A @ x * g)`` is A^T @ g, launched as K1 on the
+    transpose's plan, bit for bit equal to the plain version and to the
+    dense fp64 product."""
+    g = _edge_graph(256, seed=F)
+    # a third of the edges into column 0: an in-degree hub, split in A^T
+    hub = np.random.default_rng(F).random(g.nnz) < 0.3
+    g = CSRGraph(g.rowptr, np.where(hub, 0, g.colidx), g.values, g.n_cols)
+    op = GraphOp.build(g, device=cuda)
+    assert op.fwd.plan.partition.is_split.any()
+    assert op.bwd.plan.partition.is_split.any()
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    x = torch.randint(-4, 5, (g.n_cols, F), generator=gen,
+                      device=cuda).float().requires_grad_()
+    up = torch.randint(-4, 5, (g.n_rows, F), generator=gen,
+                       device=cuda).float()
+    before = spmm_block_slabs.launches
+    y = op(x)
+    assert spmm_block_slabs.launches == before + 1
+    y.backward(up)
+    torch.cuda.synchronize()
+    assert spmm_block_slabs.launches == before + 2
+    s = op.bwd.plan.slabs
+    plain = spmm_block_slabs_plain(*_args(s), up, g.n_cols)[op.bwd.inv_perm]
+    assert torch.equal(x.grad, plain)
+    assert torch.equal(x.grad.double(), _dense(g, cuda).T @ up.double())
+    assert torch.equal(y, spmm_block_slabs_plain(
+        *_args(op.fwd.slabs), x.detach(), g.n_rows)[op.fwd.inv_perm])
+    gt = csr_transpose(g)
+    assert op.bwd.plan.nnz == gt.nnz and op.bwd.n_rows == g.n_cols
+
+
+@pytest.mark.parametrize("variant", ["gcn", "sage", "gin"])
+def test_gcn_gradients_k1_against_the_twin(cuda, variant):
+    """Loss and every gradient of a 3-layer GCN on a directed normalized
+    graph, K1 (``accel``) against the twin (``blocked``) from the same
+    parameters: the two differ only in the order of fp32 sums, held to
+    ``1e-4 * max|grad|`` per parameter (the aggregations' pair bound,
+    ``2 * (C + 2) * 2**-24`` relative, over 3 layers forward and back with
+    margin)."""
+    g = gcn_normalize(make_power_law_graph(3000, 30000, seed=5))
+    dims = [32, 64, 64, 8]
+    x = torch.randn((g.n_rows, dims[0]), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    y = torch.randint(0, dims[-1], (g.n_rows,), device=cuda)
+    base = init_gcn(torch.Generator().manual_seed(0), dims, variant,
+                    device=cuda)
+    out = {}
+    for backend in ("accel", "blocked"):
+        op = GraphOp.build(g, backend=backend, device=cuda)
+        params = [{k: t.clone().requires_grad_() for k, t in p.items()}
+                  for p in base]
+        before = spmm_block_slabs.launches
+        loss = gcn_loss(params, op, x, y, variant)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = spmm_block_slabs.launches - before
+        layers = len(dims) - 1
+        want = (2 * layers if variant == "gcn" else 2 * layers - 1)
+        assert launched == (want if backend == "accel" else 0)
+        out[backend] = (float(loss.detach()),
+                        [{k: t.grad for k, t in p.items()} for p in params])
+    (la, ga), (lb, gb) = out["accel"], out["blocked"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    for pa, pb in zip(ga, gb):
+        for k in pb:
+            tol = 1e-4 * float(pb[k].abs().max()) + 1e-9
+            assert float((pa[k] - pb[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("mode,mbw,mwn", [("tpu", 64, 4), ("paper", 12, 32)])
+@pytest.mark.parametrize("F", [100, 2048])
+def test_repaired_plans_through_k1_and_k3_equal_fresh_build(cuda, mode, mbw,
+                                                            mwn, F):
+    """A chain of three repairs of an integer-valued graph with split rows
+    (mixed inserts and deletes, inserts into the hub, a row emptied): after
+    each, K1 and K3 on the repaired plan equal K1 and K3 on a fresh build
+    of the post-delta graph and the dense fp64 product, bit for bit."""
+    cfg = PartitionConfig(mode, mbw, mwn)
+    g = _edge_graph(cfg.deg_bound, seed=F + mbw)
+    plan = build_partition_plan(g, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    x = torch.randint(-4, 5, (g.n_cols, F), generator=gen,
+                      device=cuda).float()
+    rng = np.random.default_rng(F)
+    for step in range(3):
+        deg = np.diff(g.rowptr)
+        if step == 0:
+            eids = rng.choice(g.nnz, 40, replace=False)
+            kw = dict(insert_src=rng.integers(0, g.n_rows, 40),
+                      insert_dst=rng.integers(0, g.n_cols, 40),
+                      insert_val=rng.integers(1, 4, 40).astype(np.float32),
+                      delete_src=np.searchsorted(g.rowptr, eids,
+                                                 side="right") - 1,
+                      delete_dst=g.colidx[eids],
+                      on_duplicate="replace", on_missing="ignore")
+        elif step == 1:
+            hub = int(np.argmax(deg))
+            kw = dict(insert_src=[hub] * 5, insert_dst=np.arange(5),
+                      on_duplicate="replace")
+        else:
+            r = int(np.flatnonzero(deg > 0)[0])
+            kw = dict(delete_src=[r] * int(deg[r]),
+                      delete_dst=g.colidx[g.rowptr[r]:g.rowptr[r + 1]])
+        g, pv = apply_and_repair(plan, g, EdgeDelta(**kw),
+                                 churn_threshold=1.0)
+        assert pv.repaired, pv.reason
+        plan = pv.plan
+        fresh = build_partition_plan(g, cfg, device=cuda)
+        dense = _dense(g, cuda) @ x.double()
+        k1_before = spmm_block_slabs.launches
+        k3_before = spmm_block_slabs_hbm.launches
+        for fn in (spmm_accel, spmm_pallas_hbm):
+            got = fn(plan.slabs, x, plan.n_rows)[plan.inv_perm]
+            want = fn(fresh.slabs, x, fresh.n_rows)[fresh.inv_perm]
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (step, fn.__name__)
+            assert torch.equal(got.double(), dense), (step, fn.__name__)
+        assert spmm_block_slabs.launches == k1_before + 2
+        assert spmm_block_slabs_hbm.launches == k3_before + 2

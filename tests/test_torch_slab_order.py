@@ -7,6 +7,11 @@ decrease: each local row is one contiguous run. The graphs cover both
 partition modes, zero-degree rows, rows of degree C and split rows (degree
 > C), a forced wider R, and merged slabs padded in C, R and blocks.
 
+Plan repair keeps the property: it masks touched rows by pointing their
+``out_row`` slots at the sentinel ``n_rows`` (their lanes stay, with
+``rowloc`` unchanged) and appends blocks that ``pack_slabs`` emitted, so
+repaired and chain-repaired plans of both packages keep each row one run.
+
 K2 adds a row's window partials in window order, whatever order its
 columns come in. The order-pinning block sums +1 (window 1), +2**24
 (window 0) and -2**24 (window 1): in window order that is exactly 1, in
@@ -19,10 +24,14 @@ import torch
 
 from repro.core import graph as ref_graph
 from repro.core import partition as ref_part
+from repro.core import plan_cache as ref_pc
+from repro.core import plan_repair as ref_pr
 from repro.kernels import spmm_batched as ref_b
 from repro.kernels.spmm_accel import spmm_block_slabs_windowed as ref_k2
 from repro_torch.core import graph as port_graph
 from repro_torch.core import partition as port_part
+from repro_torch.core import plan_cache as port_pc
+from repro_torch.core import plan_repair as port_pr
 from repro_torch.kernels import spmm_accel as port_k
 from repro_torch.kernels import spmm_batched as port_b
 
@@ -101,6 +110,60 @@ def test_batch_graph_slabs_keeps_each_row_one_run(pkg):
                                      pad_blocks_to=2 * b_live)[0]
     assert merged["colidx"].shape[0] == 2 * b_live
     assert _assert_row_runs(merged) >= b_live
+
+
+def _repair_deltas(g, seed):
+    """Three deltas: mixed inserts and deletes, inserts into the largest
+    (split) row, which re-emits it as split blocks, and a row emptied."""
+    rng = np.random.default_rng(seed)
+    deg = np.diff(g.rowptr)
+    eids = rng.choice(g.nnz, 5, replace=False)
+    mixed = dict(insert_src=rng.integers(0, g.n_rows, 6),
+                 insert_dst=rng.integers(0, g.n_cols, 6),
+                 delete_src=np.searchsorted(g.rowptr, eids, side="right") - 1,
+                 delete_dst=g.colidx[eids],
+                 on_duplicate="replace", on_missing="ignore")
+    hub = int(np.argmax(deg))
+    grow = dict(insert_src=[hub] * 3, insert_dst=[0, 1, 2],
+                on_duplicate="replace")
+    small = int(np.flatnonzero(deg > 0)[0])
+    return [mixed, grow, small]
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+@pytest.mark.parametrize("mode,mbw,mwn", MODES)
+def test_repaired_slabs_keep_each_row_one_run(pkg, mode, mbw, mwn):
+    """Each link of a chain of repairs: live slots' rowloc non-decreasing in
+    every block, and every masked slot pointing at the sentinel."""
+    C = mbw * mwn
+    g = _edge_graph(C, seed=mbw + mwn)
+    pc, pr = (ref_pc, ref_pr) if pkg == "reference" else (port_pc, port_pr)
+    if pkg == "port":
+        g = _port(g)
+    cfg = pc.PartitionConfig(mode, mbw, mwn)
+    plan = (pc.build_partition_plan(g, cfg) if pkg == "reference" else
+            pc.build_partition_plan(g, cfg, device="cpu"))
+    repaired = 0
+    for delta_kw in _repair_deltas(g, seed=C):
+        if isinstance(delta_kw, int):       # empty this row
+            lo, hi = g.rowptr[delta_kw], g.rowptr[delta_kw + 1]
+            delta_kw = dict(delete_src=[delta_kw] * int(hi - lo),
+                            delete_dst=g.colidx[lo:hi], on_missing="ignore")
+        delta = pr.EdgeDelta(**delta_kw)
+        old_blocks = plan.num_blocks
+        old_pos = np.asarray(plan.inv_perm)[delta.touched_rows()]
+        g, pv = pr.apply_and_repair(plan, g, delta, churn_threshold=1.0)
+        assert pv.repaired, pv.reason
+        repaired += 1
+        plan = pv.plan
+        _assert_row_runs(plan.slabs)
+        out_row = np.asarray(plan.slabs["out_row"])
+        # masked rows left no slot in the old blocks
+        assert not np.isin(out_row[:old_blocks], old_pos).any()
+        assert plan.num_blocks > old_blocks or delta.n_inserts == 0
+        if repaired == 2:                   # the hub came back split
+            assert plan.partition.is_split[old_blocks:].any()
+    assert repaired == 3
 
 
 def _order_pinning_block():

@@ -117,9 +117,45 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
    tokens (each GEMM, bound by the weights' bytes), each beside its bound,
    and the whole ``moe_block`` at both; then the ``{"kernels": [...]}``
-   line (K1's and K3's records also carry ``launches_by_path``, their
+   line (K1's, K2's and K3's records also carry ``launches_by_path``, their
    launches on each path that runs them), the card line, and the
    ``{"ok": true, ...}`` line last.
+13. slice E's autotuning path (run after phase 9), on the Arxiv analogue
+   and its integer copy as phase 9 builds them: (a) every candidate of
+   ``default_candidates`` for the tpu default and paper (12, 32) (slab
+   shapes C = 128-768, R up to 256; phase 2 prints each shape's shared
+   memory and CTAs per SM) through K1, K2 and K3 at F=2048, exact against
+   the fp64 CSR oracle on the integer copy; (b) ``tune_offline`` at
+   F=2048, ``accel``, 5 repeats by CUDA events: each candidate's ms and
+   speedup over the base; (c) an ``accel`` engine whose ``PlanTuner``
+   wins every comparison, forced to promote the winner of (b) (the first
+   candidate if none won), serves the 25m GCN's layers on the float graph
+   (chained, within the summation bound valid for both plans) and integer
+   features at each layer's width on the integer copy (exact) until the
+   promotion is published and a whole pass is served after it: the served
+   plan carries the candidate's config and label at the next version, no
+   shadow failed; (d) ``PlanTuner()`` at its defaults under 1,200
+   closed-loop F=256 reads: comparisons, wins, promotions, and the live
+   dispatch's p50 with and without a shadow in flight (shadows run on a
+   stream of their own). K1's launches over (c) and (d) must equal the
+   live dispatches plus 5 per shadow (1 warm-up + ABBA);
+14. slice E's sampled serving (after phase 13): the Reddit analogue in a
+   ``GraphStore`` (normalized, both orientations) behind one
+   ``GraphServeEngine(backend="auto")`` and the 25m GCN at full width and
+   depth (5 layers, 5 hops): (a) full fanout on 32 seeds against
+   full-graph serving of ``store.in_adj`` at those seeds, within twice the
+   first-order bound of the frontier's fp64 magnitude; (b) a 2-hop
+   full-fanout ``aggregate`` on an integer store (values 1, features
+   -4..4) equal to the fp64 oracle of (A^2 x)[seeds]; (c) fanouts
+   [10, 10, 5, 5, 5], 2 batches of 256 train seeds (``seed_splits``,
+   ``seed_batches``) each served twice (2 frontier misses, 2 hits), each
+   answer against the fp64 oracle of its frontier's blocks, with the
+   layer sizes, the host's sampling and plan-build ms, each hop's routed
+   regime and device ms, the dense GEMM ms and seeds per second on a hit;
+   (d) inserts aimed at (b)'s seeds through ``store.apply_delta``: the
+   cached frontier is repaired through ``engine.mutate`` (or dropped) and
+   the next aggregate equals the post-delta oracle exactly. The phase's
+   K1, K2 and K3 launches must equal the engine's routed counts.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -254,6 +290,29 @@ def phase_build():
             if min(ctas.values()) <= 2:
                 raise AssertionError(f"{kern} f_tile={f_tile}: {ctas} CTAs "
                                      f"per SM")
+    # every slab shape the partition tuner can promote (phase 13), at
+    # R = C, the most rows a block of C slots holds
+    libs = {"K1": (k1, "spmm_block_slabs", spmm_accel.K1_F_TILE),
+            "K2": (load_kernel("spmm_windowed", spmm_accel._declare_k2),
+                   "spmm_windowed", spmm_accel.DEFAULT_F_TILE),
+            "K3": (load_kernel("spmm_hbm", spmm_hbm._declare), "spmm_hbm",
+                   spmm_hbm.DEFAULT_F_TILE)}
+    for base, cand in candidate_shapes():
+        C = cand.config.deg_bound
+        shapes = []
+        for kern, (lib, prefix, f_tile) in libs.items():
+            smem = getattr(lib, f"{prefix}_smem_bytes")(C, C, f_tile)
+            ctas = {inst: getattr(lib, f"{prefix}_ctas_per_sm")(
+                        C, C, f_tile, int(inst == "bulk"))
+                    for inst in spmm_accel.GATHER_INSTANCES}
+            shapes.append(f"{kern} f_tile {f_tile} {smem} B, CTAs per SM "
+                          + "/".join(str(v) for v in ctas.values()))
+            if min(ctas.values()) <= 2:
+                raise AssertionError(f"{kern} at candidate {cand.label} "
+                                     f"(C={C}): {ctas} CTAs per SM")
+        log(f"candidate {base.mode}({base.max_block_warps},"
+            f"{base.max_warp_nzs}) {cand.label}, C={C}, R<={C}: "
+            + "; ".join(shapes) + " (bulk/cp_async)")
     log("K4: its source's fixed ring (kSmemBytes, 197,696 B) allows one "
         "CTA per SM")
 
@@ -1399,6 +1458,20 @@ def served_ms(torch, engine, name, x, reps=3):
     return sorted(times)[reps // 2]
 
 
+def arxiv_graphs():
+    """The Arxiv analogue after gcn_normalize and its integer-valued copy
+    (values 1-3), as phase 9 builds them."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph, gcn_normalize
+    from repro_torch.data.graphs import make_benchmark_graph
+    raw, _ = make_benchmark_graph(MUTATE_GRAPH, seed=1)
+    norm = gcn_normalize(raw)
+    ints = CSRGraph(norm.rowptr, norm.colidx, np.random.default_rng(2)
+                    .integers(1, 4, norm.nnz).astype(np.float32),
+                    norm.n_cols)
+    return norm, ints
+
+
 def phase_mutate(torch, dev, card_line):
     """Slice D's mutation path: the Arxiv analogue in an ``accel`` engine
     (K1) and an ``auto`` engine (K3, the hbm regime at F=2048), 4 deltas
@@ -1406,22 +1479,15 @@ def phase_mutate(torch, dev, card_line):
     against a fresh build; the same on an integer-valued copy, exactly, and
     on that copy again with edge-uniform deletes, where rebuilds are logged
     and not asserted absent. Returns the K1 and K3 launches of the path."""
-    import numpy as np
-    from repro_torch.core.graph import CSRGraph, gcn_normalize
     from repro_torch.core.plan_cache import build_partition_plan
     from repro_torch.core.plan_repair import delta_chain_hash, repair_plan
-    from repro_torch.data.graphs import make_benchmark_graph
     from repro_torch.kernels import ops
     from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
                                                 spmm_block_slabs)
     from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
     from repro_torch.serve.graph_engine import GraphServeEngine
 
-    raw, _ = make_benchmark_graph(MUTATE_GRAPH, seed=1)
-    norm = gcn_normalize(raw)
-    ints = CSRGraph(norm.rowptr, norm.colidx, np.random.default_rng(2)
-                    .integers(1, 4, norm.nnz).astype(np.float32),
-                    norm.n_cols)
+    norm, ints = arxiv_graphs()
     engines = {"accel": GraphServeEngine(device=dev, backend="accel"),
                "auto": GraphServeEngine(device=dev, backend="auto")}
     kernel_of = {"accel": ops.spmm_accel, "auto": ops.spmm_pallas_hbm}
@@ -1595,6 +1661,585 @@ def match_version(torch, chain, x, y, C, nnz_chunk, integer):
         if ok:
             return v
     raise AssertionError("a read racing the mutations matches no version")
+
+
+# ------------------------------------------------------------ slice E
+TUNE_F = 2048              # phase 13's candidate checks and tune_offline
+TUNE_DISPATCHES = 1200     # phase 13(d): live F=256 dispatches
+TUNE_LIVE_F = 256
+SAMPLE_GRAPH = "Reddit"
+SAMPLE_FANOUTS = [10, 10, 5, 5, 5]   # phase 14(c), one per GCN layer
+SAMPLE_BATCHES = 2                    # distinct capped seed batches
+SAMPLE_BATCH = 256
+SAMPLE_SEEDS = 32                     # phase 14(a), (b), (d)
+
+
+def k_of(g, configs):
+    """Per-row k of the summation bound (original row order) valid for a
+    plan of any of ``configs``: the largest over their slab capacities."""
+    import numpy as np
+    return np.max([summation_k(g, c.deg_bound, False) for c in configs],
+                  axis=0)
+
+
+def candidate_shapes():
+    """(base, candidate) for every candidate of the tpu default and of
+    paper (12, 32): every slab shape phase 13 promotes or measures."""
+    from repro_torch.core.plan_cache import PartitionConfig
+    from repro_torch.tuning import default_candidates
+    return [(base, c) for base in (PartitionConfig(),
+                                   PartitionConfig("paper", 12, 32))
+            for c in default_candidates(base)]
+
+
+def phase_tune(torch, dev, card_line):
+    """Slice E's autotuning path on the Arxiv analogue: (a) every candidate
+    slab shape through K1, K2 and K3, exact on the integer copy; (b)
+    ``tune_offline`` at F=2048; (c) a forced promotion through a live
+    ``accel`` engine serving the 25m GCN's layers, answers held before and
+    after; (d) the default policy under closed-loop F=256 traffic, the
+    live dispatch's p50 with and without a shadow in flight. Returns K1's
+    launches on the path ((c) and (d)) and the log's numbers."""
+    from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs)
+    from repro_torch.models.layers import dense_init
+    from repro_torch.tuning import default_candidates, tune_offline
+
+    t_phase = time.perf_counter()
+    norm, ints = arxiv_graphs()
+    nnz_chunk = 1 << 17
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    # (a) every candidate shape through K1, K2 and K3, exactly
+    t0 = time.perf_counter()
+    x_int = torch.randint(-4, 5, (ints.n_cols, TUNE_F), generator=gen,
+                          device=dev).float()
+    want = csr_oracle(torch, ints, x_int, nnz_chunk)
+    kernels = {"K1": ops.spmm_accel, "K2": ops.spmm_pallas_windowed,
+               "K3": ops.spmm_pallas_hbm}
+    for base, cand in candidate_shapes():
+        tb = time.perf_counter()
+        plan = build_partition_plan(ints, cand.config, device=dev)
+        t_build = time.perf_counter() - tb
+        for k, fn in kernels.items():
+            y = fn(plan.slabs, x_int, plan.n_rows)[plan.inv_perm]
+            torch.cuda.synchronize()
+            if not torch.equal(y.double(), want):
+                raise AssertionError(f"{k} on candidate {cand.label} of "
+                                     f"{base}: not exact")
+            del y
+        log(f"tune (a) {base.mode}({base.max_block_warps},"
+            f"{base.max_warp_nzs}) {cand.label}: C={plan.slabs['C']} "
+            f"R={plan.slabs['R']}, {plan.num_blocks} blocks "
+            f"({int(plan.partition.is_split.sum())} split), built in "
+            f"{t_build:.2f}s; K1, K2, K3 exact at F={TUNE_F}")
+        del plan
+    del x_int, want
+    log(f"tune (a): {len(candidate_shapes())} candidate shapes x 3 kernels "
+        f"exact in {time.perf_counter() - t0:.1f}s")
+
+    # (b) tune_offline: every default candidate of the tpu base, timed
+    t0 = time.perf_counter()
+    rep = tune_offline(norm, PartitionConfig(), feat_dim=TUNE_F, repeats=5,
+                       backend="accel", device=dev)
+    log(f"tune (b) tune_offline Arxiv F={TUNE_F} accel (CUDA events, 1 "
+        f"warm-up, best of 5): base {rep['base']['time_s'] * 1e3:.3f} ms; "
+        f"{card_line}")
+    for row in rep["candidates"]:
+        if "error" in row:
+            raise AssertionError(f"tune_offline candidate {row['label']} "
+                                 f"raised: {row['error']}")
+        log(f"tune (b) {row['label']}: {row['time_s'] * 1e3:.3f} ms, "
+            f"{row['speedup_vs_base']:.3f}x the base")
+    best = rep["best"]
+    cands = default_candidates(PartitionConfig())
+    won = best is not None and rep["best_speedup"] > 1.0
+    cand = next(c for c in cands if c.label == best["label"]) if won \
+        else cands[0]
+    log(f"tune (b): {len(cands)} candidates in "
+        f"{time.perf_counter() - t0:.1f}s; best {best['label']} at "
+        f"{rep['best_speedup']:.3f}x; phase (c) forces "
+        f"{cand.label} ({'the winner' if won else 'none won: the first'})")
+
+    # (c) forced promotion through a live engine, float and integer graphs
+    dims = DIMS + [N_CLASSES]
+    wgen = torch.Generator().manual_seed(0)
+    weights = [dense_init(wgen, a, b, torch.float32, device=dev)
+               for a, b in zip(dims[:-1], dims[1:])]
+    spmm_block_slabs.launches = 0          # the tune path starts here
+    spmm_block_slabs.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+    t_path = time.perf_counter()
+    k = {}
+    for label, g in (("float", norm), ("integer", ints)):
+        k[label] = torch.as_tensor(
+            k_of(g, [PartitionConfig(), cand.config]), dtype=torch.float64,
+            device=dev)[:, None]
+    forced = {}
+    for label, g in (("float", norm), ("integer", ints)):
+        forced[label] = promote_through_engine(
+            torch, dev, label, g, cand, weights, k[label], nnz_chunk, gen)
+    # (d) the reference's default policy under closed-loop F=256 reads
+    live = default_policy_run(torch, dev, norm, k_of(norm, [
+        PartitionConfig()] + [c.config for c in cands]), nnz_chunk, gen)
+    launches = spmm_block_slabs.launches            # the tune path ends
+    by_instance = dict(spmm_block_slabs.launches_by_instance)
+    expected = sum(r["expected_launches"] for r in forced.values()) \
+        + live["expected_launches"]
+    log(f"tune path: K1 launches {launches} (by instance {by_instance}), "
+        f"live dispatches + 5 per shadow = {expected}; "
+        f"{time.perf_counter() - t_path:.1f}s")
+    if launches != expected or launches < 1:
+        raise AssertionError(f"tune path: K1 launches {launches} != live "
+                             f"dispatches + 5 per shadow {expected}")
+    log(f"phase 13 (autotuning) {time.perf_counter() - t_phase:.1f}s")
+    return {"K1": launches, "offline": rep, "forced": cand.label,
+            "p50": live}
+
+
+def promote_through_engine(torch, dev, label, g, cand, weights, k,
+                           nnz_chunk, gen):
+    """Phase 13(c): an ``accel`` engine whose tuner wins every comparison
+    serves the GCN's layers on ``g`` until its one candidate is promoted
+    and a whole pass has been served after it. The float graph serves the
+    chained layers (held within the summation bound, ``k`` valid for both
+    plans); the integer copy serves integer features at each layer's width
+    (held exactly). Returns the launches the run must have made."""
+    from repro_torch.serve.graph_engine import GraphServeEngine
+    from repro_torch.tuning import PlanTuner
+
+    integer = label == "integer"
+    engine = GraphServeEngine(device=dev, backend="accel", tuner=PlanTuner(
+        hot_rate=0.0, shadow_fraction=1.0, win_streak=2,
+        min_improvement=-100.0, max_trials=4, candidates=[cand]))
+    name = f"{MUTATE_GRAPH}-{label}"
+    engine.register_graph(name, g)
+    v0 = engine.graph_version(name)
+    c0 = engine.plan_for(name).config
+    seen = {"before": 0, "during": 0, "after": 0}
+    errs = []
+    t0 = time.perf_counter()
+    passes_after = 0
+    for rnd in range(8):
+        h = torch.randn((g.n_cols, weights[0].shape[0]), generator=gen,
+                        device=dev)
+        whole_after = engine.stats()["tuned_promotions"] == 1
+        for li, w in enumerate(weights):
+            if integer:
+                xw = torch.randint(-4, 5, (g.n_cols, w.shape[1]),
+                                   generator=gen, device=dev).float()
+            else:
+                xw = h @ w
+            p_before = engine.stats()["tuned_promotions"]
+            y = engine.serve_one(name, xw)
+            p_after = engine.stats()["tuned_promotions"]
+            seen["after" if p_before else "before" if not p_after
+                 else "during"] += 1
+            want = csr_oracle(torch, g, xw, nnz_chunk)
+            if integer:
+                if not torch.equal(y.double(), want):
+                    raise AssertionError(f"tune (c) {label} round {rnd} "
+                                         f"layer {li}: not exact")
+            else:
+                mag = csr_oracle(torch, g, xw, nnz_chunk, magnitude=True)
+                errs.append(check_close(f"tune (c) {label} round {rnd} layer "
+                                        f"{li}", y, want, U * k * mag))
+                del mag
+            h = torch.relu(y) if li < len(weights) - 1 else y
+            del want, xw
+        passes_after += whole_after
+        if passes_after >= 1:
+            break
+    engine.close()                  # waits for a shadow still in flight
+    st = engine.stats()
+    plan = engine.plan_for(name)
+    log(f"tune (c) {label}: promoted {plan.tuned} (config {plan.config}) "
+        f"at version {plan.version} (was {v0}, {c0}); answers before "
+        f"{seen['before']}, during {seen['during']}, after {seen['after']}"
+        + (f", max err {max(errs):.2e}" if errs else ", all exact")
+        + f"; dispatches {st['batches_dispatched']}, shadows "
+        f"{st['shadow_dispatches']} ({st['shadow_time_s']:.2f}s), skipped "
+        f"{st['shadow_skipped']}, failures {st['shadow_failures']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    if st["tuned_promotions"] != 1 or st["shadow_failures"] != 0:
+        raise AssertionError(f"tune (c) {label}: {st['tuned_promotions']} "
+                             f"promotions, {st['shadow_failures']} failures")
+    if plan.config != cand.config or (plan.tuned or {}).get("label") \
+            != cand.label or plan.version != v0 + 1:
+        raise AssertionError(f"tune (c) {label}: served plan {plan.config} "
+                             f"{plan.tuned} v{plan.version}")
+    if not seen["before"] or not seen["after"]:
+        raise AssertionError(f"tune (c) {label}: answers {seen}")
+    return {"expected_launches": st["batches_dispatched"]
+            + 5 * st["shadow_dispatches"]}
+
+
+def default_policy_run(torch, dev, g, k, nnz_chunk, gen):
+    """Phase 13(d): an ``accel`` engine with ``PlanTuner()`` at the
+    reference's defaults serves TUNE_DISPATCHES reads of F=256 back to
+    back. Each read's dispatch time (the engine's ``total_serve_s``
+    step: merge, kernel, un-permute, synchronize) is filed under "without"
+    a shadow, or, when one was in flight at its start or end, under
+    "building" (the shadow worker was building a candidate plan on the
+    host: the plan cache had a build in flight) or "measuring" (its
+    launches); every 100th answer is held to the summation bound (``k``
+    valid for any candidate's plan)."""
+    import numpy as np
+    from repro_torch.serve.graph_engine import GraphServeEngine
+    from repro_torch.tuning import PlanTuner
+
+    engine = GraphServeEngine(device=dev, backend="accel", tuner=PlanTuner())
+    engine.register_graph("Arxiv", g)
+    x = torch.randn((g.n_cols, TUNE_LIVE_F), generator=gen, device=dev)
+    kt = torch.as_tensor(k, dtype=torch.float64, device=dev)[:, None]
+    times = {"without": [], "building": [], "measuring": []}
+
+    def shadow_state():
+        # live reads hit a cached plan, so a build in flight is the shadow's
+        st = engine.stats()
+        if not st["shadow_in_flight"]:
+            return 0
+        return 2 if st["cache_builds_in_flight"] else 1
+
+    t0 = time.perf_counter()
+    for i in range(TUNE_DISPATCHES):
+        state = shadow_state()
+        before = engine.total_serve_s
+        y = engine.serve_one("Arxiv", x)
+        dt = engine.total_serve_s - before
+        state = max(state, shadow_state())
+        times[("without", "measuring", "building")[state]].append(dt * 1e3)
+        if i % 100 == 0:
+            want = csr_oracle(torch, g, x, nnz_chunk)
+            mag = csr_oracle(torch, g, x, nnz_chunk, magnitude=True)
+            check_close(f"tune (d) read {i}", y, want, U * kt * mag)
+            del want, mag
+    wall = time.perf_counter() - t0
+    engine.close()
+    st = engine.stats()
+    with_shadow = times["building"] + times["measuring"]
+    p50 = {"without": float(np.median(times["without"])),
+           "with": float(np.median(with_shadow)) if with_shadow else None}
+    log(f"tune (d) default PlanTuner(), Arxiv F={TUNE_LIVE_F}, "
+        f"{TUNE_DISPATCHES} closed-loop reads in {wall:.1f}s: comparisons "
+        f"{st['tuner_comparisons']}, wins {st['tuner_wins']}, promotions "
+        f"{st['tuner_promotions']}, candidates exhausted "
+        f"{st['tuner_exhausted_graphs']}, failures "
+        f"{st['tuner_candidate_failures']}; shadows "
+        f"{st['shadow_dispatches']} ({st['shadow_time_s']:.2f}s on the "
+        f"worker), skipped {st['shadow_skipped']}; state "
+        f"{engine.tuner.describe('Arxiv')}; served plan "
+        f"{engine.plan_for('Arxiv').tuned}")
+    log("tune (d) live dispatch p50 / p90 (ms): " + "; ".join(
+        f"{side} {np.median(ts):.3f} / {np.percentile(ts, 90):.3f} "
+        f"({len(ts)} reads)"
+        for side, ts in (("without a shadow", times["without"]),
+                         ("with one in flight", with_shadow),
+                         ("its plan build", times["building"]),
+                         ("its launches", times["measuring"])) if ts))
+    if st["shadow_failures"]:
+        raise AssertionError(f"tune (d): {st['shadow_failures']} shadow "
+                             f"failures")
+    return {"expected_launches": st["batches_dispatched"]
+            + 5 * st["shadow_dispatches"], "p50_without_ms": p50["without"],
+            "p50_with_ms": p50["with"], "n_with": len(with_shadow),
+            "comparisons": st["tuner_comparisons"],
+            "promotions": st["tuner_promotions"]}
+
+
+class TimedSampler:
+    """A store's ``sample_in_neighbors`` with its host time per call."""
+
+    def __init__(self, store):
+        self.store = store
+        self.ms = []
+
+    def sample_in_neighbors(self, nodes, fanout=None, **kw):
+        t0 = time.perf_counter()
+        out = self.store.sample_in_neighbors(nodes, fanout, **kw)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def timed_registration_engine():
+    """A ``GraphServeEngine`` whose ``register_subgraph`` (the service's
+    call that registers a hop's block and builds its plan) keeps its host
+    time per call in ``reg_ms``."""
+    from repro_torch.serve.graph_engine import GraphServeEngine
+
+    class TimedRegistrationEngine(GraphServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.reg_ms = []
+
+        def register_subgraph(self, *a, **kw):
+            t0 = time.perf_counter()
+            gid = super().register_subgraph(*a, **kw)
+            self.reg_ms.append((time.perf_counter() - t0) * 1e3)
+            return gid
+
+    return TimedRegistrationEngine
+
+
+def frontier_oracle(torch, f, x, params, nnz_chunk, C):
+    """The GCN over a frontier's blocks, outermost first, in fp64 through
+    the CSR oracle, and the same on absolute values; returns (the answer,
+    the magnitude, the bound's depth c) at the frontier's hop-0 rows.
+    ``c`` sums per layer the GEMM depth K, the largest summation k of the
+    block's rows and 1 for the bias: a served fp32 answer is within
+    ``c * u * magnitude`` of the fp64 one (first order)."""
+    idx = torch.as_tensor(f.input_nodes, device=x.device)
+    h = x[idx].double()
+    m = h.abs()
+    L = f.num_hops
+    c = 0
+    for i, p in enumerate(params):
+        blk = f.blocks[L - 1 - i].graph
+        w = p["w"].double()
+        h = csr_oracle(torch, blk, h @ w, nnz_chunk) + p["b"].double()
+        m = csr_oracle(torch, blk, m @ w.abs(), nnz_chunk, magnitude=True) \
+            + p["b"].double().abs()
+        if i < L - 1:
+            h = torch.relu(h)
+        c += int(w.shape[0]) + int(summation_k(blk, C, False).max()) + 1
+    return h, m, c
+
+
+def phase_sample(torch, dev, card_line):
+    """Slice E's sampled serving on the Reddit analogue through an ``auto``
+    engine with the 25m GCN (5 layers, 5 hops): (a) full fanout against
+    full-graph serving; (b) an exact 2-hop aggregate on an integer store;
+    (c) capped fanouts, 2 batches served twice each, against the fp64
+    oracle of each frontier, with the host's and the card's times per
+    frontier; (d) a delta into the live integer store. The K1, K2 and K3
+    launches of the phase, less the full-graph reference's and the timing
+    comparisons', must equal the sampling engine's routed counts."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph
+    from repro_torch.core.plan_repair import EdgeDelta
+    from repro_torch.data.graphs import (make_benchmark_graph, seed_batches,
+                                         seed_splits)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.router import route_spmm
+    from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
+                                                spmm_block_slabs,
+                                                spmm_block_slabs_windowed)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
+    from repro_torch.models.layers import dense_init
+    from repro_torch.sampling import GraphStore, SamplingService
+    from repro_torch.serve.graph_engine import GraphServeEngine
+
+    t_phase = time.perf_counter()
+    raw, _ = make_benchmark_graph(SAMPLE_GRAPH, seed=0)
+    t0 = time.perf_counter()
+    store = GraphStore.build(raw, normalize=True)
+    n = store.n_nodes
+    log(f"sample: {SAMPLE_GRAPH} store {n} nodes, {store.n_edges} nnz "
+        f"(normalized, both orientations) built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    engine = timed_registration_engine()(device=dev, backend="auto")
+    C = engine.config.deg_bound
+    nnz_chunk = 1 << 17
+    wgen = torch.Generator().manual_seed(0)
+    params = [{"w": dense_init(wgen, a, b, torch.float32, device=dev),
+               "b": torch.zeros((b,), device=dev)}
+              for a, b in zip(DIMS[:-1], DIMS[1:])]
+    gen = torch.Generator(device=dev).manual_seed(51)
+    x = torch.randn((n, DIMS[0]), generator=gen, device=dev)
+    rng = np.random.default_rng(52)
+    kernels = {"K1": spmm_block_slabs, "K2": spmm_block_slabs_windowed,
+               "K3": spmm_block_slabs_hbm}
+    compared = dict.fromkeys(kernels, 0)
+    for fn in kernels.values():            # the sample path starts here
+        fn.launches = 0
+        fn.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+
+    # (a) full fanout through 5 hops == full-graph serving at the seeds;
+    # the full graph is served by an engine of its own, and its launches
+    # (slice A's path, the reference answer) are not the sample path's
+    t0 = time.perf_counter()
+    held = {kk: fn.launches for kk, fn in kernels.items()}
+    full_engine = GraphServeEngine(device=dev, backend="auto")
+    full_engine.register_graph("full", store.in_adj)
+    h = x
+    for i, p in enumerate(params):
+        h = full_engine.submit("full", h @ p["w"]).result() + p["b"]
+        if i < len(params) - 1:
+            h = torch.relu(h)
+    full_engine.close()
+    del full_engine
+    full_launches = {kk: fn.launches - held[kk]
+                     for kk, fn in kernels.items()}
+    for kk in kernels:
+        compared[kk] += full_launches[kk]
+    svc_full = SamplingService(engine, store, [None] * len(params),
+                               store=store)
+    seeds = rng.choice(n, SAMPLE_SEEDS, replace=False)
+    out = svc_full.infer(seeds, x, params)
+    f = svc_full.frontier_for(seeds)
+    rows = torch.as_tensor(np.searchsorted(f.layers[0], seeds), device=dev)
+    _, m, c = frontier_oracle(torch, f, x, params, nnz_chunk, C)
+    want = h[torch.as_tensor(seeds, device=dev)]
+    err = check_close("sample (a) full fanout vs full graph", out, want,
+                      2 * U * c * m[rows])
+    L = f.num_hops
+    regimes = []                # the router's decision per hop (no launch)
+    for i, p in enumerate(params):
+        blk = f.blocks[L - 1 - i].graph
+        plan = engine.plan_for(engine.register_subgraph(blk,
+                                                        prefix="frontier"))
+        d = route_spmm(blk.n_cols, p["w"].shape[1], int(plan.slabs["C"]),
+                       int(plan.slabs["R"]))
+        regimes.append(f"hop {L - 1 - i} {d.backend}")
+    log(f"sample (a) full fanout {len(params)} hops, {SAMPLE_SEEDS} seeds: "
+        f"layers {[len(l) for l in f.layers]}, block nnz "
+        f"{[b.n_edges for b in f.blocks]}, routed {', '.join(regimes)}; "
+        f"max err {err:.2e} against full-graph serving (bound 2 c u |.|, "
+        f"c={c}; the full-graph reference launched {full_launches}, not "
+        f"counted on the sample path); {time.perf_counter() - t0:.1f}s")
+    del h, out, want, m
+
+    # (b) exact 2-hop aggregation on an integer store (values 1)
+    t0 = time.perf_counter()
+    istore = GraphStore.build(CSRGraph(raw.rowptr, raw.colidx, np.ones(
+        raw.nnz, np.float32), raw.n_cols))
+    isvc = SamplingService(engine, istore, [None, None], store=istore)
+    xi = torch.randint(-4, 5, (n, TUNE_LIVE_F), generator=gen,
+                       device=dev).float()
+    iseeds = rng.choice(n, SAMPLE_SEEDS, replace=False)
+
+    def two_hop(a):
+        sel = torch.as_tensor(iseeds, device=dev)
+        want = csr_oracle(torch, a, csr_oracle(torch, a, xi, nnz_chunk),
+                          nnz_chunk)[sel]
+        mag = csr_oracle(torch, a, csr_oracle(torch, a, xi, nnz_chunk,
+                                              magnitude=True),
+                         nnz_chunk, magnitude=True)[sel]
+        # every partial sum stays below 2**24: fp32 integer sums are exact
+        if float(mag.max()) >= 2.0 ** 24:
+            raise AssertionError(f"2-hop magnitude {float(mag.max())} at "
+                                 f"the seeds: fp32 sums would round")
+        return want, float(mag.max())
+
+    got = isvc.aggregate(iseeds, xi)
+    want, mag_max = two_hop(istore.in_adj)
+    if not torch.equal(got.double(), want):
+        raise AssertionError("sample (b): 2-hop aggregate not exact")
+    fi = isvc.frontier_for(iseeds)
+    log(f"sample (b) integer store, 2-hop full fanout aggregate F="
+        f"{TUNE_LIVE_F}, {SAMPLE_SEEDS} seeds: layers "
+        f"{[len(l) for l in fi.layers]}, exact (largest magnitude "
+        f"{mag_max:.0f} < 2^24); {time.perf_counter() - t0:.1f}s")
+
+    # (c) capped fanouts: 2 distinct batches, each served twice
+    t0 = time.perf_counter()
+    sampler = TimedSampler(store)
+    svc = SamplingService(engine, sampler, SAMPLE_FANOUTS, store=store)
+    reg_ms = engine.reg_ms
+    train, _ = seed_splits(n, [0.5, 0.2], seed=3)
+    batches = [b for _, b in zip(range(SAMPLE_BATCHES), seed_batches(
+        train, SAMPLE_BATCH, seed=4))]
+    served = []
+    for b in batches:
+        sampler.ms.clear()
+        reg_ms.clear()
+        tb = time.perf_counter()
+        y_miss = svc.infer(b, x, params)
+        torch.cuda.synchronize()
+        t_miss = time.perf_counter() - tb
+        sample_ms, build_ms = list(sampler.ms), sum(reg_ms)
+        tb = time.perf_counter()
+        y_hit = svc.infer(b, x, params)
+        torch.cuda.synchronize()
+        t_hit = time.perf_counter() - tb
+        served.append((b, y_miss, y_hit, t_miss, t_hit, sample_ms, build_ms))
+    st = svc.stats()
+    if (st["frontier_misses"], st["frontier_hits"]) != (SAMPLE_BATCHES,
+                                                        SAMPLE_BATCHES):
+        raise AssertionError(f"sample (c): stats {st}")
+    for b, y_miss, y_hit, t_miss, t_hit, sample_ms, build_ms in served:
+        f = svc.frontier_for(b)
+        rows = torch.as_tensor(np.searchsorted(f.layers[0], b), device=dev)
+        h64, m, c = frontier_oracle(torch, f, x, params, nnz_chunk, C)
+        errs = [check_close(f"sample (c) {which}", y, h64[rows],
+                            U * c * m[rows])
+                for which, y in (("miss", y_miss), ("hit", y_hit))]
+        # per hop: the routed kernel on the hop's plan (a comparison, not
+        # the path) and the dense product, by CUDA events
+        hops, gemm_ms = [], []
+        L = f.num_hops
+        for i, p in enumerate(params):
+            blk = f.blocks[L - 1 - i]
+            # the block's content-derived id (registered: no rebuild)
+            plan = engine.plan_for(engine.register_subgraph(
+                blk.graph, prefix="frontier"))
+            z = torch.randn((blk.graph.n_cols, p["w"].shape[1]),
+                            generator=gen, device=dev)
+            hz = torch.randn((blk.graph.n_cols, p["w"].shape[0]),
+                             generator=gen, device=dev)
+            held = {kk: fn.launches for kk, fn in kernels.items()}
+            _, d = ops.spmm_auto(plan.slabs, z, plan.n_rows,
+                                 return_decision=True)
+            ms = cuda_ms(lambda: ops.spmm_auto(plan.slabs, z, plan.n_rows),
+                         5)
+            for kk, fn in kernels.items():
+                compared[kk] += fn.launches - held[kk]
+            hz @ p["w"]
+            gemm_ms.append(cuda_ms(lambda: hz @ p["w"], 5))
+            hops.append(f"hop {L - 1 - i} ({blk.graph.n_rows}x"
+                        f"{blk.graph.n_cols}, {blk.n_edges} nnz, F="
+                        f"{p['w'].shape[1]}) {d.backend} {ms:.3f} ms")
+            del z, hz
+        log(f"sample (c) fanouts {SAMPLE_FANOUTS}, {len(b)} seeds: layers "
+            f"{[len(l) for l in f.layers]}; miss {t_miss * 1e3:.1f} ms "
+            f"(host sampling {sum(sample_ms):.1f} ms: "
+            f"{', '.join(f'{v:.1f}' for v in sample_ms)}; block "
+            f"registration and plan builds {build_ms:.1f} ms), hit "
+            f"{t_hit * 1e3:.1f} ms = {len(b) / t_hit:.0f} seeds/s; device "
+            f"per hop: {'; '.join(hops)}; dense GEMM ms per layer "
+            f"{', '.join(f'{v:.3f}' for v in gemm_ms)}; max err miss "
+            f"{errs[0]:.2e}, hit {errs[1]:.2e} (bound c u |.|, c={c}); "
+            f"{card_line}")
+    log(f"sample (c): {time.perf_counter() - t0:.1f}s")
+
+    # (d) a delta into the live integer store, aimed at (b)'s seeds
+    t0 = time.perf_counter()
+    fi = isvc.frontier_for(iseeds)
+    dst = fi.layers[0][:8]
+    src = rng.choice(fi.layers[1], len(dst))
+    before = isvc.stats()
+    istore.apply_delta(EdgeDelta(insert_src=src, insert_dst=dst,
+                                 insert_val=np.ones(len(dst), np.float32),
+                                 on_duplicate="replace"))
+    after = isvc.stats()
+    mutated = after["frontier_mutations"] - before["frontier_mutations"]
+    dropped = after["frontiers_invalidated"] - before["frontiers_invalidated"]
+    if mutated < 1 and dropped < 1:
+        raise AssertionError(f"sample (d): the delta neither repaired nor "
+                             f"dropped the cached frontier: {after}")
+    got = isvc.aggregate(iseeds, xi)
+    want, _ = two_hop(istore.in_adj)
+    if not torch.equal(got.double(), want):
+        raise AssertionError("sample (d): post-delta aggregate not exact")
+    log(f"sample (d) {len(dst)} inserts aimed at the seeds: frontiers "
+        f"repaired through mutate() {mutated}, dropped {dropped}; engine "
+        f"mutations {engine.stats()['mutations_applied']}; post-delta "
+        f"aggregate exact; {time.perf_counter() - t0:.1f}s")
+
+    engine.close()
+    es = engine.stats()
+    launches = {kk: fn.launches - compared[kk]       # the sample path ends
+                for kk, fn in kernels.items()}
+    routed = {"K1": es["routed_resident"], "K2": es["routed_windowed"],
+              "K3": es["routed_hbm"]}
+    log(f"sample path: launches {launches}, engine's routed counts "
+        f"{routed}; phase 14 (sampled serving) "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    if launches != routed or launches["K1"] < 1:
+        raise AssertionError(f"sample path launches {launches} differ from "
+                             f"the routed dispatches {routed}")
+    return launches
 
 
 # ------------------------------------------------------------ slice C1
@@ -2195,11 +2840,22 @@ def main():
     mutate = phase_mutate(torch, dev, card_line)
     gc.collect()
     torch.cuda.empty_cache()
+    tune = phase_tune(torch, dev, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sample = phase_sample(torch, dev, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
     k1["launches_by_path"] = {"serve": launches_a,
                               "train": train["launches"],
-                              "mutate": mutate["K1"]}
+                              "mutate": mutate["K1"], "tune": tune["K1"],
+                              "sample": sample["K1"]}
+    k2["launches_by_path"] = {"routed": launches["K2"]}
     k3["launches_by_path"] = {"routed": launches["K3"],
                               "mutate": mutate["K3"]}
+    for rec, k in ((k2, "K2"), (k3, "K3")):
+        if sample[k]:
+            rec["launches_by_path"]["sample"] = sample[k]
     k4_err = phase_k4_cases(torch, dev)
     p, p32, xs, x32, metas, k4_launches = phase_moe(torch, dev)
     k4 = phase_timing_k4(torch, p, p32, xs, x32, metas, k4_launches, k4_err)

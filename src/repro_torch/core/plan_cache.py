@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import threading
 from collections import OrderedDict
@@ -129,6 +130,10 @@ class PartitionPlan:
     # hash in ``key`` still changes with every version: the version is the
     # lineage, the hash is the identity.
     version: int = 0
+    # dispatch hints attached by the autotuner at promotion (JSON-able:
+    # backend/grid_order/label). None until a tuned candidate wins; spills
+    # and reloads with the plan so tuned configs survive eviction.
+    tuned: Optional[Dict] = None
 
     @property
     def graph_hash(self) -> str:
@@ -437,6 +442,8 @@ class PlanCache:
             payload[f"slab_{k}"] = plan.slabs[k].cpu().numpy()
         for k in ("inv_perm", "coo_row", "coo_col", "coo_val"):
             payload[k] = getattr(plan, k).cpu().numpy()
+        if plan.tuned is not None:
+            payload["tuned_json"] = np.array(json.dumps(plan.tuned))
         tmp = path + ".tmp"
         try:
             with open(tmp, "wb") as f:
@@ -481,13 +488,15 @@ class PlanCache:
                 staged = _stage({k: z[k] for k in ("inv_perm", "coo_row",
                                                    "coo_col", "coo_val")},
                                 self.device)
+                tuned = (json.loads(str(z["tuned_json"]))
+                         if "tuned_json" in z else None)
                 return PartitionPlan(
                     key=key,
                     n_rows=int(z["n_rows"]), n_cols=int(z["n_cols"]),
                     nnz=int(z["nnz"]), slabs=slabs, partition=bp,
                     # pre-versioning spills reload as version 0
                     version=int(z["version"]) if "version" in z else 0,
-                    **staged)
+                    tuned=tuned, **staged)
         except Exception:       # corrupt/partial/alien spill (BadZipFile,
             return None         # KeyError, OSError, ...): rebuild instead
 
@@ -504,6 +513,8 @@ class PlanCache:
                 "hits": self.hits,
                 "misses": self.misses,
                 "builds": self.builds,
+                # gauge: keys being built right now (single-flight builds)
+                "builds_in_flight": len(self._inflight),
                 "evictions": self.evictions,
                 "spills": self.spills,
                 "disk_hits": self.disk_hits,

@@ -51,8 +51,18 @@ dispatch counts under the regime it ran (``routed_*`` in ``stats()``).
 Live edge mutation (``mutate``) rides the same admission queue: a flush
 dispatches its reads against the pinned pre-publish plan versions, then
 applies its deltas per graph in arrival order, repairs the plan once
-(``core/plan_repair.py``) and publishes the next version. The partition
-autotuner arrives with a later slice (ROADMAP queue 1).
+(``core/plan_repair.py``) and publishes the next version.
+
+Online partition autotuning (``tuner=PlanTuner(...)``): after a dispatch
+has answered, the tuner may ask for a SHADOW of it — the same features
+through a candidate plan, measured against the incumbent in a paired ABBA
+run on one worker thread. On the card the worker runs on its own CUDA
+stream, so a live dispatch (which synchronizes its own stream before it
+answers) does not wait for the shadow's kernels to finish. Reads still
+pay at the tail while a shadow is in flight: its candidate plan is built
+on the host in this process (the worker holds the GIL), and its launches
+share the SMs with the live ones. A candidate that wins its streak is
+published through the same version chain as a mutation.
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ import logging
 import threading
 import time
 from collections import OrderedDict, deque
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +85,8 @@ from ..core.plan_cache import (
 from ..core.plan_repair import EdgeDelta, delta_chain_hash, repair_plan
 from ..kernels.router import RoutingDecision
 from ..kernels.spmm_batched import bucket_blocks, spmm_batched
+from ..tuning.search import TuningCandidate
+from ..tuning.tuner import PlanTuner, time_call
 from .scheduler import BatchScheduler, ClassSpec, WorkItem
 
 __all__ = ["GraphRequest", "GraphServeEngine"]
@@ -132,6 +144,7 @@ class GraphServeEngine:
         feature_bucket: bool = True,
         classes: Optional[Sequence[ClassSpec]] = None,
         repair_churn_threshold: float = 0.25,
+        tuner: Optional[PlanTuner] = None,
     ):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {'|'.join(_BACKENDS)}")
@@ -199,6 +212,28 @@ class GraphServeEngine:
         # where exact=True means the dispatch held ONLY this plan (a fused
         # multi-graph dispatch records its per-plan SHARE, flagged inexact)
         self._plan_times: "OrderedDict[tuple, deque]" = OrderedDict()
+        # --- online partition autotuning (shadow-measured rollout) -------
+        # The tuner only ever acts on COPIES of live work: a shadow
+        # duplicates one dispatch onto the candidate plan on a separate
+        # single worker thread AFTER the live futures resolved, and on the
+        # card on a stream of its own, so no live dispatch waits for a
+        # candidate's kernels (it still shares the host and the SMs with
+        # them). At most one shadow is in flight per engine; when the
+        # worker is busy the opportunity is skipped, never queued.
+        self.tuner = tuner
+        self._shadow_pool: Optional[ThreadPoolExecutor] = None
+        self._shadow_stream: Optional["torch.cuda.Stream"] = None
+        self._shadow_lock = threading.Lock()
+        self._shadow_inflight = False
+        # tuned dispatch hints by graph id, re-attached to plans rebuilt
+        # from scratch after an eviction (the structure comes back via the
+        # config in the key; the backend/grid_order hints live here)
+        self._tuned_hints: Dict[str, Dict] = {}
+        self.shadow_dispatches = 0   # candidate measurements completed
+        self.shadow_skipped = 0      # opportunities dropped (worker busy)
+        self.shadow_failures = 0     # candidate build/dispatch raised
+        self.shadow_time_s = 0.0     # wall time spent in shadow measurements
+        self.tuned_promotions = 0    # tuned configs published
 
     # ------------------------------------------------------------------ admin
     def register_graph(self, graph_id: str, g: CSRGraph,
@@ -207,11 +242,19 @@ class GraphServeEngine:
 
         Re-registering the same id with identical content is a no-op (cache
         hit); different content replaces the binding and continues the id's
-        version chain.
+        version chain. A same-content re-register keeps a TUNED binding
+        (the autotuner may have promoted a non-default config for this
+        graph — identical content must not silently reset it to
+        ``self.config``).
         """
         if normalize:
             g = gcn_normalize(g)
         h = graph_content_hash(g)
+        with self._bind_lock:
+            prev_key = self._keys.get(graph_id)
+        if prev_key is not None and prev_key[0] == h and \
+                prev_key != (h, self.config):
+            return self.plan_for(graph_id)  # tuned binding, same content
         key = (h, self.config)
         plan = self.cache.get_by_key(
             key, lambda: build_partition_plan(g, self.config, graph_hash=h,
@@ -248,7 +291,8 @@ class GraphServeEngine:
         return graph_id
 
     def unregister_graph(self, graph_id: str) -> bool:
-        """Drop a graph's binding (id -> graph, plan key and version).
+        """Drop a graph's binding (id -> graph, plan key, version and tuned
+        hints).
 
         The plan itself stays in the LRU cache until evicted — a later
         ``register_subgraph`` of the same content re-binds without a
@@ -261,6 +305,7 @@ class GraphServeEngine:
             self._graphs.pop(graph_id, None)
             self._keys.pop(graph_id, None)
             self._versions.pop(graph_id, None)
+            self._tuned_hints.pop(graph_id, None)
         return known
 
     def submit_gather(self, graph_id: str, x: torch.Tensor,
@@ -299,14 +344,22 @@ class GraphServeEngine:
     def plan_for(self, graph_id: str) -> PartitionPlan:
         """Resolve a registered graph's plan WITHOUT rehashing its arrays —
         the content hash was paid once at registration; a rebuild only
-        happens if the plan was LRU-evicted since, with the config embedded
-        in the key."""
+        happens if the plan was LRU-evicted since. The rebuild uses the
+        config EMBEDDED IN THE KEY (not ``self.config``): after the tuner
+        promotes a non-default config, an evicted plan must rebuild with
+        its tuned structure. Tuned dispatch hints are re-attached from the
+        engine's hint map when the rebuild lost them."""
         with self._bind_lock:   # key and graph must belong together
             key = self._keys[graph_id]
             g = self._graphs[graph_id]
-        return self.cache.get_by_key(
+        plan = self.cache.get_by_key(
             key, lambda: build_partition_plan(
                 g, key[1], graph_hash=key[0], device=self.device))
+        if plan.tuned is None:
+            hints = self._tuned_hints.get(graph_id)
+            if hints is not None and plan.key[1] == hints["config"]:
+                plan.tuned = hints["tuned"]
+        return plan
 
     def graph_version(self, graph_id: str) -> int:
         """Current published version of a registered graph's plan chain."""
@@ -314,8 +367,13 @@ class GraphServeEngine:
             return self._versions[graph_id]
 
     def close(self) -> None:
-        """Stop the background scheduler (drains anything still queued)."""
+        """Stop the background scheduler (drains anything still queued),
+        then the shadow worker (waits for a measurement in flight)."""
         self.scheduler.stop()
+        with self._shadow_lock:
+            pool, self._shadow_pool = self._shadow_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     # ------------------------------------------------------------------ serve
     def _validate(self, graph_id: str, x) -> None:
@@ -590,15 +648,17 @@ class GraphServeEngine:
         pad_to = None
         if self.block_bucket:
             pad_to = bucket_blocks(b_total, self.block_bucket)
+        backend, grid_order = self._effective_launch(plans)
         outs, decision = spmm_batched(
             [p.slabs for p in plans], xs, [p.n_rows for p in plans],
-            backend=self.backend, pad_blocks_to=pad_to, return_decision=True)
+            backend=backend, pad_blocks_to=pad_to, return_decision=True,
+            grid_order=grid_order)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0         # this dispatch's wall time
 
         executed = (decision.backend if decision is not None
-                    else _UNROUTED[self.backend])
+                    else _UNROUTED[backend])
         share = dt / len(batch)
         with self._counters_lock:
             self.backend_dispatches[executed] += 1
@@ -639,6 +699,183 @@ class GraphServeEngine:
             self.total_serve_s += dt
         for item, result in answers:
             item.complete(result)
+        # autotuning LAST: every live answer above already resolved, so
+        # shadow work can never sit between a request and its result
+        if self.tuner is not None:
+            self._tuner_tick(batch, xs)
+
+    # ------------------------------------------------------------ autotuning
+    def _effective_launch(self, plans: List[PartitionPlan]
+                          ) -> Tuple[str, str]:
+        """Backend/grid_order for one fused dispatch: a plan's tuned hints
+        apply when every plan in the batch agrees on the effective pair
+        (trivially true for the single-graph dispatches that dominate hot
+        traffic); a mixed batch falls back to the engine defaults."""
+        pairs = {(((p.tuned or {}).get("backend")) or self.backend,
+                  ((p.tuned or {}).get("grid_order")) or "block_major")
+                 for p in plans}
+        if len(pairs) == 1:
+            return pairs.pop()
+        return self.backend, "block_major"
+
+    def _tuner_tick(self, batch, xs: List[torch.Tensor]) -> None:
+        """Per-dispatch tuner hook (runs AFTER the live futures resolved):
+        feeds the rate tracker, asks the tuner whether any graph in this
+        batch is due a shadow measurement, and hands shadows to the single
+        worker thread."""
+        for gid, grp, _ in batch:
+            self.tuner.observe(gid, len(grp))
+        for (gid, _grp, plan), x in zip(batch, xs):
+            cand = self.tuner.next_shadow(gid, plan.config)
+            if cand is None:
+                continue
+            self._submit_shadow(gid, plan, cand, x)
+
+    def _submit_shadow(self, gid: str, plan_i: PartitionPlan,
+                       cand: TuningCandidate, x: torch.Tensor) -> None:
+        """Hand one shadow measurement to the worker; skip if it's busy
+        (shadows are opportunistic — never queued, never blocking). On the
+        card, an event on the live stream marks where ``x`` is ready; the
+        shadow stream waits on it before it reads ``x``."""
+        with self._shadow_lock:
+            if self._shadow_inflight:
+                busy = True
+            else:
+                busy = False
+                self._shadow_inflight = True
+                if self._shadow_pool is None:
+                    self._shadow_pool = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="plan-shadow")
+                if self.device.type == "cuda" and self._shadow_stream is None:
+                    self._shadow_stream = torch.cuda.Stream(self.device)
+                pool = self._shadow_pool
+        if busy:
+            with self._counters_lock:
+                self.shadow_skipped += 1
+            return
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        pool.submit(self._run_shadow, gid, plan_i, cand, x, ready)
+
+    def _run_shadow(self, gid: str, plan_i: PartitionPlan,
+                    cand: TuningCandidate, x: torch.Tensor,
+                    ready: Optional["torch.cuda.Event"]) -> None:
+        """Worker-thread body: build the candidate plan (single-flight via
+        the cache) and run a PAIRED A/B measurement — the incumbent and
+        candidate plans dispatch the SAME features back-to-back in this
+        thread (1 untimed candidate warm-up, then timed runs in ABBA order
+        with the per-side min scored), so both sides see the same
+        background load. A promotion signal publishes the candidate
+        through the version chain."""
+        t_start = time.perf_counter()
+        old_key = plan_i.key
+        try:
+            with self._bind_lock:
+                stale = self._keys.get(gid) != old_key
+                g = self._graphs.get(gid)
+            if stale or g is None:
+                return              # graph mutated/replaced since the tick
+            stream = self._shadow_stream        # None on the CPU
+            if stream is not None:
+                # read x only after the live stream wrote it; the allocator
+                # keeps x until the shadow stream is done with it
+                stream.wait_event(ready)
+                x.record_stream(stream)
+            with torch.cuda.stream(stream):     # no-op for None
+                plan_c, incumbent_s, candidate_s = self._measure_shadow(
+                    g, plan_i, cand, x)
+            if stream is not None:
+                # the candidate's slabs were staged on the shadow stream:
+                # they must be complete before a live dispatch can read them
+                stream.synchronize()
+            with self._counters_lock:
+                self.shadow_dispatches += 1
+            winner = self.tuner.record_shadow(gid, cand, incumbent_s,
+                                              candidate_s)
+            if winner is not None:
+                self._promote_tuned(gid, old_key, winner, plan_c)
+        except Exception:  # noqa: BLE001 — a broken candidate must not
+            logger.exception("shadow measurement failed for %r (%s)",
+                             gid, cand.label)        # take down the worker
+            with self._counters_lock:
+                self.shadow_failures += 1
+            self.tuner.candidate_failed(gid, cand)
+        finally:
+            with self._counters_lock:
+                self.shadow_time_s += time.perf_counter() - t_start
+            with self._shadow_lock:
+                self._shadow_inflight = False
+
+    def _measure_shadow(self, g: CSRGraph, plan_i: PartitionPlan,
+                        cand: TuningCandidate, x: torch.Tensor
+                        ) -> Tuple[PartitionPlan, float, float]:
+        """Build the candidate plan and time both sides on the current
+        stream (CUDA events on the card, the host clock on the CPU):
+        1 untimed candidate warm-up, then incumbent, candidate, candidate,
+        incumbent. Returns ``(plan_c, incumbent_s, candidate_s)``."""
+        key = (plan_i.graph_hash, cand.config)
+        plan_c = self.cache.get_by_key(
+            key, lambda: build_partition_plan(
+                g, cand.config, graph_hash=plan_i.graph_hash,
+                device=self.device))
+        hints_i = plan_i.tuned or {}
+        launches = {
+            "inc": (plan_i, hints_i.get("backend") or self.backend,
+                    hints_i.get("grid_order") or "block_major"),
+            "cand": (plan_c, cand.backend or self.backend, cand.grid_order),
+        }
+
+        def _once(which: str) -> float:
+            plan, backend, grid_order = launches[which]
+            pad_to = (bucket_blocks(plan.num_blocks, self.block_bucket)
+                      if self.block_bucket else None)
+            return time_call(lambda: spmm_batched(
+                [plan.slabs], [x], [plan.n_rows], backend=backend,
+                pad_blocks_to=pad_to, grid_order=grid_order), self.device)
+
+        _once("cand")           # warm-up: a first launch must not score
+        # ABBA order de-phases background load: a live dispatch that
+        # overlaps the shadow window hits early and late slots alike
+        samples = [(w, _once(w)) for w in ("inc", "cand", "cand", "inc")]
+        incumbent_s = min(s for w, s in samples if w == "inc")
+        candidate_s = min(s for w, s in samples if w == "cand")
+        return plan_c, incumbent_s, candidate_s
+
+    def _promote_tuned(self, gid: str, old_key: tuple,
+                       cand: TuningCandidate, plan_c: PartitionPlan) -> None:
+        """Publish a winning candidate as the graph's next plan version.
+
+        Rides the same machinery as mutate(): under the mutation lock the
+        binding is re-checked (a racing mutation aborts the promotion —
+        the tuner forgets the graph and re-tunes if it stays hot), the
+        plan gets its tuned hints + the next chain version, and
+        ``_publish_version`` atomically publishes + re-binds. In-flight
+        reads keep their pinned incumbent version until they drain.
+        """
+        with self._mutate_lock:
+            with self._bind_lock:
+                if self._keys.get(gid) != old_key:
+                    aborted = True
+                else:
+                    aborted = False
+                    cur_ver = self._versions[gid]
+                    g = self._graphs[gid]
+            if aborted:
+                self.tuner.reset(gid)
+                return
+            plan_c.tuned = cand.tuned_hints()
+            plan_c.version = cur_ver + 1
+            self._publish_version(gid, g, plan_c, old_key)
+            with self._bind_lock:
+                self._tuned_hints[gid] = {"config": cand.config,
+                                          "tuned": dict(plan_c.tuned)}
+            with self._counters_lock:
+                self.tuned_promotions += 1
+        self.tuner.confirm_promoted(gid)
+        logger.info("promoted tuned config for %r: %s (version %d)",
+                    gid, cand.label, plan_c.version)
 
     def _record_plan_time_locked(self, key: tuple, seconds: float,
                                  exact: bool) -> None:
@@ -654,7 +891,9 @@ class GraphServeEngine:
     def plan_timings(self) -> Dict[str, Dict[str, float]]:
         """Per-plan dispatch timing summary from the bounded ring buffers.
 
-        Keyed ``<graph_hash[:12]>:<config_tag[:8]>``. ``exact_n`` counts
+        Keyed ``<graph_hash[:12]>:<config_tag[:8]>`` (hash alone is
+        ambiguous once the tuner publishes a re-configured plan of the same
+        content). ``exact_n`` counts
         single-graph samples — fused multi-graph dispatches contribute their
         per-plan share only.
         """
@@ -678,6 +917,9 @@ class GraphServeEngine:
         s = {f"cache_{k}": v for k, v in self.cache.stats().items()}
         s.update({f"sched_{k}": v
                   for k, v in self.scheduler.stats().items()})
+        if self.tuner is not None:
+            s.update({f"tuner_{k}": v
+                      for k, v in self.tuner.stats().items()})
         s["plan_timings"] = self.plan_timings()
         # engine counters are one atomic snapshot (same guarantee as
         # PlanCache.stats()); cache/scheduler snapshots above are each
@@ -723,5 +965,13 @@ class GraphServeEngine:
             mutation_edges=self.mutation_edges,
             plan_repairs=self.plan_repairs,
             plan_rebuilds=self.plan_rebuilds,
+            # online autotuning: shadow measurements + promotions
+            shadow_dispatches=self.shadow_dispatches,
+            shadow_skipped=self.shadow_skipped,
+            shadow_failures=self.shadow_failures,
+            shadow_time_s=self.shadow_time_s,
+            shadow_in_flight=int(self._shadow_inflight),   # gauge: 0 or 1
+            tuned_promotions=self.tuned_promotions,
+            tuned_graphs=len(self._tuned_hints),
         )
         return s

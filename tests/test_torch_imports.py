@@ -47,7 +47,9 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "configs.phi3_mini_3p8b", "configs.gemma2_27b",
                 "configs.internlm2_20b", "configs.zamba2_7b",
                 "configs.hubert_xlarge", "configs.chameleon_34b",
-                "configs.mamba2_780m"):
+                "configs.mamba2_780m", "tuning.search", "tuning.tuner",
+                "sampling.store", "sampling.sampler", "sampling.service",
+                "distributed.replication"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path

@@ -29,7 +29,15 @@ a two-layer GCN's loss and gradients within a stated bound of the twin's),
 and repaired and chain-repaired plans (masked lanes, appended blocks)
 through K1 and K3 must equal a fresh build's output bit for bit on
 integer graphs.
+
+Slice E runs K1, K2 and K3 on every slab shape the partition tuner can
+promote (the candidates of the tpu default and of paper (12, 32)), exact
+on integer graphs with split rows; an engine with a forced-win tuner
+promotes on the card with its shadows on a stream of their own; and a
+2-hop full-fanout sampled aggregation through ``auto`` is exact.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +59,8 @@ from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
 from repro_torch.kernels.ops import spmm_accel, spmm_pallas_hbm
 from repro_torch.models.gcn import GraphOp, gcn_loss, init_gcn
 from repro_torch.models.moe import _route, block_dispatch, init_moe, moe_block
+from repro_torch.serve import GraphServeEngine
+from repro_torch.tuning import PlanTuner, default_candidates
 
 pytestmark = pytest.mark.gpu
 
@@ -604,3 +614,106 @@ def test_repaired_plans_through_k1_and_k3_equal_fresh_build(cuda, mode, mbw,
             assert torch.equal(got.double(), dense), (step, fn.__name__)
         assert spmm_block_slabs.launches == k1_before + 2
         assert spmm_block_slabs_hbm.launches == k3_before + 2
+
+
+# ---------------------------------------------------------------- slice E
+# every slab shape the tuner can promote: the candidates of both bases
+CANDIDATES = {f"{base.mode}{base.max_block_warps}x{base.max_warp_nzs}-"
+              f"{c.label}": c.config
+              for base in (PartitionConfig(), PartitionConfig("paper", 12, 32))
+              for c in default_candidates(base)}
+
+
+@pytest.mark.parametrize("name", sorted(CANDIDATES))
+@pytest.mark.parametrize("kernel", ["resident", "windowed_80", "hbm"])
+@pytest.mark.parametrize("F", [100, 2048])
+def test_candidate_slab_shapes_equal_plain_on_integer_graphs(cuda, name,
+                                                             kernel, F):
+    """K1, K2 and K3 on every candidate's (C, R, warp_nzs table): split
+    rows, partly filled warps (dead slots between live ones), exact."""
+    cfg = CANDIDATES[name]
+    g = _edge_graph(cfg.deg_bound, seed=F + cfg.deg_bound)
+    plan = build_partition_plan(g, cfg, device=cuda)
+    assert plan.partition.is_split.any()
+    assert plan.slabs["C"] == cfg.deg_bound
+    fn, plain, kw, _ = _routed(kernel, g.n_cols)
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    x = torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda).float()
+    before = fn.launches
+    got = fn(*_args(plan.slabs), x, g.n_rows, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(*_args(plan.slabs), x, g.n_rows))
+
+
+def test_forced_promotion_on_the_card_shadows_on_their_own_stream(
+        cuda, monkeypatch):
+    """An ``accel`` engine whose tuner wins every comparison promotes its
+    one candidate; every shadow dispatch ran on a stream other than the
+    live one, K1 launched 5 times per shadow, and the answers before and
+    after the promotion equal the fp64 product exactly (integer graph)."""
+    import threading
+
+    from repro_torch.serve import graph_engine as ge
+
+    streams = {"live": set(), "shadow": set()}
+    real = ge.spmm_batched
+
+    def spy(*a, **kw):
+        side = ("shadow" if threading.current_thread().name
+                .startswith("plan-shadow") else "live")
+        streams[side].add(torch.cuda.current_stream().cuda_stream)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ge, "spmm_batched", spy)
+    g = _edge_graph(256, seed=5)
+    x = torch.randint(-4, 5, (g.n_cols, 64), device=cuda).float()
+    dense = _dense(g, cuda) @ x.double()
+    cand = default_candidates(PartitionConfig())[0]
+    engine = GraphServeEngine(device=cuda, backend="accel", tuner=PlanTuner(
+        hot_rate=0.0, shadow_fraction=1.0, win_streak=2,
+        min_improvement=-100.0, max_trials=4, candidates=[cand]))
+    try:
+        engine.register_graph("g", g)
+        before = spmm_block_slabs.launches
+        answers = []
+        for _ in range(200):
+            answers.append(engine.serve_one("g", x))
+            if engine.stats()["tuned_promotions"]:
+                break
+            time.sleep(0.005)
+        answers.append(engine.serve_one("g", x))
+        engine.close()
+        s = engine.stats()
+        assert s["tuned_promotions"] == 1 and s["shadow_failures"] == 0
+        plan = engine.plan_for("g")
+        assert plan.tuned["label"] == cand.label and plan.version == 1
+        assert plan.config == cand.config
+        assert spmm_block_slabs.launches - before == \
+            s["batches_dispatched"] + 5 * s["shadow_dispatches"]
+        for y in answers:
+            assert torch.equal(y.double(), dense)
+        assert streams["shadow"] and not streams["shadow"] & streams["live"]
+    finally:
+        engine.close()
+
+
+def test_sampled_two_hop_aggregate_through_auto_is_exact(cuda):
+    """Full fanout, integer store: ``aggregate`` through ``auto`` equals
+    the fp64 product (A^2 x) at the seeds, bit for bit."""
+    from repro_torch.sampling import GraphStore, SamplingService
+
+    g = _edge_graph(256, seed=9)
+    store = GraphStore.build(g)
+    engine = GraphServeEngine(device=cuda, backend="auto")
+    try:
+        svc = SamplingService(engine, store, [None, None], store=store)
+        x = torch.randint(-4, 5, (g.n_rows, 128), device=cuda).float()
+        seeds = np.array([3, 200, 17, 3, 150])
+        got = svc.aggregate(seeds, x)
+        a = _dense(store.in_adj, cuda)
+        want = (a @ (a @ x.double()))[torch.as_tensor(seeds, device=cuda)]
+        assert torch.equal(got.double(), want)
+        assert engine.stats()["routed_resident"] == 2
+    finally:
+        engine.close()

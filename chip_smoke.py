@@ -156,6 +156,34 @@ Phases (any failure exits non-zero and prints no result line):
    cached frontier is repaired through ``engine.mutate`` (or dropped) and
    the next aggregate equals the post-delta oracle exactly. The phase's
    K1, K2 and K3 launches must equal the engine's routed counts.
+15. slice F's fleet serving (run after phase 7, on its graphs), over the
+   slots of ``fleet_slots()``: one per card where several are visible, else
+   4 slots of the one card (slots share its SMs: no speed-up is expected).
+   (a) a ``FleetGraphEngine(backend="accel")`` serves Reddit, Arxiv, the
+   25m preset graph and ``tiny`` through the 25m GCN layer by layer, each
+   graph in a dispatch of its own: ``route_fleet`` takes the F=2048 layers
+   to ``feature``, the F=256 layers to ``block`` (``tiny``: ``single``);
+   each dispatch's FleetDecision equals ``route_fleet``'s and is logged
+   with the live blocks per slot (balanced within one); every answer
+   within the summation bound plus the slot count for block-sharded
+   answers (split rows sum across slots), integer copies (values 1-2,
+   features -2..2) exact at F=2048 and 256; K1's launches equal the
+   engine's per-slot routed count (``slot_routed_resident``); (b) the same
+   with ``backend="auto"``, each slot's share on K1, K2 or K3 as its shape
+   routes, each launched, launches equal to the per-slot routed counts;
+   (c) the reference's zipf script at 20k-50k nodes, F=256, 96 requests
+   from 4 threads, ``rate_per_replica=1.0``, replication on and off: at
+   least one promotion, requests of per-slot dispatches on more slots
+   than with replication off, answers equal and exact, occupancy logged
+   both ways; (d) ``mutate()`` on the hottest zipf graph, replicated to
+   every slot, while 2 threads read: every read one version's exact
+   product, the new version staged on the primary and every replica;
+   (e) ``hedge_ms`` set on small replicated graphs: answers exact, hedge
+   counters logged; (f) CUDA-event and wall times of one served F=2048 and
+   F=256 layer of Reddit, the fleet against a single ``GraphServeEngine``
+   in turns, with the fleet's busy clocks. The K1/K2/K3 launches of
+   (a)-(d) are the ``"fleet"`` entry of each record's
+   ``launches_by_path``.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -2805,6 +2833,472 @@ def phase_timing_k4(torch, p, p32, xs_by_shape, x32, metas, launches,
             "library_ms": library_ms}
 
 
+# ------------------------------------------------------------ slice F
+FLEET_SLOTS = 4            # slots on one card when only one is visible
+FLEET_INT_WIDTHS = (2048, 256)
+ZIPF_NODES = (20_000, 27_500, 35_000, 42_500, 50_000)
+ZIPF_REQUESTS = 96
+ZIPF_F = 256
+FLEET_HEDGE_MS = 0.2
+
+
+def fleet_slots(torch):
+    """One slot per card where several are visible, else FLEET_SLOTS slots
+    of the one card."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * FLEET_SLOTS
+
+
+def integer_copy(g, seed):
+    """``g``'s structure with values 1-2: with features in -2..2 every
+    partial sum of the Reddit analogue (max degree ~2.07M) stays below
+    2**24, so every sum is exact in any order."""
+    import numpy as np
+    from repro_torch.core.graph import CSRGraph
+    vals = np.random.default_rng(seed).integers(1, 3, g.nnz)
+    return CSRGraph(g.rowptr, g.colidx, vals.astype(np.float32), g.n_cols)
+
+
+def int_features(torch, n, F, gen, dev):
+    return torch.randint(-2, 3, (n, F), generator=gen, device=dev).float()
+
+
+def kernel_counters():
+    from repro_torch.kernels.spmm_accel import (spmm_block_slabs,
+                                                spmm_block_slabs_windowed)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
+    return {"K1": spmm_block_slabs, "K2": spmm_block_slabs_windowed,
+            "K3": spmm_block_slabs_hbm}
+
+
+def reset_launches():
+    from repro_torch.kernels.spmm_accel import GATHER_INSTANCES
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        fn.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def slot_routed(stats):
+    """The engine's per-slot routed counts, by kernel."""
+    return {"K1": stats["slot_routed_resident"],
+            "K2": stats["slot_routed_windowed"],
+            "K3": stats["slot_routed_hbm"]}
+
+
+def fleet_serve_layers(torch, fleet, graphs, weights, feats, slots,
+                       nnz_chunk, label):
+    """Serve the GCN layer by layer, each graph in a dispatch of its own,
+    so each dispatch's FleetDecision and block counts can be read after
+    it. Every answer is held against the CSR oracle within the summation
+    bound, plus the slot count where split rows sum across slots and the
+    window count where a share ran K2. Returns the strategies seen."""
+    import dataclasses
+    from repro_torch.distributed import round_robin_block_order
+    from repro_torch.kernels.router import route_fleet
+    C = fleet.config.deg_bound
+    seen = {}
+    h = dict(feats)
+    for li, w in enumerate(weights):
+        for name, g in graphs.items():
+            xw = h[name] @ w
+            plan = fleet.plan_for(name)
+            F = int(xw.shape[1])
+            fd = route_fleet(plan.n_cols, F, int(plan.slabs["C"]),
+                             int(plan.slabs["R"]), plan.num_blocks,
+                             len(slots))
+            n_before = fleet.stats()["batches_dispatched"]
+            t0 = time.perf_counter()
+            y = fleet.serve_one(name, xw)
+            ms = (time.perf_counter() - t0) * 1e3
+            if fd.strategy == "single":
+                dec = fleet.last_decision       # None under accel: K1
+                counts = ""
+            else:
+                # under accel every slot runs K1, under auto what the
+                # router names for the slot's share
+                dec = fd.per_device if fleet.backend == "auto" else None
+                got = fleet.last_fleet_decision
+                if dataclasses.asdict(got) != dataclasses.asdict(fd):
+                    raise AssertionError(f"{label} {name}: the engine routed "
+                                         f"{got.describe()}, route_fleet "
+                                         f"says {fd.describe()}")
+                counts = ""
+                if fd.strategy == "block":
+                    _, live = round_robin_block_order(plan.num_blocks,
+                                                      len(slots))
+                    blocks = fleet.last_block_counts
+                    if blocks != [int(c) for c in live] or \
+                            max(blocks) - min(blocks) > 1:
+                        raise AssertionError(f"{label} {name}: block counts "
+                                             f"{blocks}")
+                    counts = f", live blocks per slot {blocks}"
+            if fleet.stats()["batches_dispatched"] != n_before + 1:
+                raise AssertionError(f"{label} {name}: not one dispatch")
+            regime = dec.backend if dec is not None else "resident"
+            extra = (len(slots) if fd.strategy == "block" else 0) + (
+                dec.num_windows if regime == "windowed" else 0)
+            err = csr_check(torch, g, xw, y, C, nnz_chunk, extra)
+            seen.setdefault(fd.strategy, 0)
+            seen[fd.strategy] += 1
+            if li == 0 or F != int(weights[li - 1].shape[1]):
+                log(f"{label} layer {li} {name} F={F}: {fd.describe()}; "
+                    f"slot regime {regime}{counts}; max err {err:.2e}; "
+                    f"{ms:.1f} ms")
+            h[name] = torch.relu(y) if li < len(weights) - 1 else y
+    for name, g in graphs.items():
+        if not bool(torch.isfinite(h[name]).all()) or \
+                tuple(h[name].shape) != (g.n_rows, N_CLASSES):
+            raise AssertionError(f"{label} {name}: logits not finite or of "
+                                 f"shape {tuple(h[name].shape)}")
+    return seen
+
+
+def fleet_serve_integers(torch, fleet, ints, dev, nnz_chunk, label):
+    """The integer copies at each width of FLEET_INT_WIDTHS: exact."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for F in FLEET_INT_WIDTHS:
+        for name, g in ints.items():
+            x = int_features(torch, g.n_cols, F, gen, dev)
+            y = fleet.serve_one(name, x)
+            if not torch.equal(y.double(), csr_oracle(torch, g, x,
+                                                      nnz_chunk)):
+                raise AssertionError(f"{label} {name} F={F}: not exact")
+    log(f"{label}: integer copies {sorted(ints)} exact at F="
+        f"{list(FLEET_INT_WIDTHS)}")
+
+
+def fleet_zipf(torch, dev, slots, nnz_chunk):
+    """Phase 15(c): the reference's zipf script at 20k-50k nodes and F=256
+    (integer graphs), replication on and off. Returns both engines' stats,
+    the hottest graph and its features."""
+    import numpy as np
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.serve.fleet import FleetGraphEngine
+    graphs = {f"z{i}": integer_copy(make_power_law_graph(n, 8 * n,
+                                                         seed=50 + i), 60 + i)
+              for i, n in enumerate(ZIPF_NODES)}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    feats = {k: int_features(torch, g.n_cols, ZIPF_F, gen, dev)
+             for k, g in graphs.items()}
+    names = list(graphs)
+    rng = np.random.default_rng(3)
+    p = np.arange(1, len(names) + 1, dtype=np.float64) ** -1.6
+    p /= p.sum()
+    schedule = [names[i] for i in rng.choice(len(names), size=ZIPF_REQUESTS,
+                                             p=p)]
+    runs = {}
+    engines = {}
+    for mode, kw in (("on", dict(rate_per_replica=1.0, max_replicas=8,
+                                 replica_halflife_s=4.0,
+                                 replication_interval_s=0.005,
+                                 split_min_requests=1)),
+                     ("off", dict(replicate_hot=False))):
+        e = FleetGraphEngine(devices=slots, max_batch_requests=32,
+                             max_wait_ms=3.0, max_graphs_per_batch=1,
+                             backend="accel", **kw)
+        for k, g in graphs.items():
+            e.register_graph(k, g)
+
+        def pass_once():
+            futs = [[] for _ in range(4)]
+
+            def sub(t):
+                futs[t] = [e.submit(gid, feats[gid])
+                           for gid in schedule[t::4]]
+            ths = [threading.Thread(target=sub, args=(t,)) for t in range(4)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=600)
+                if th.is_alive():
+                    raise AssertionError("a zipf submitter did not finish")
+            return [(gid, f.result(timeout=600))
+                    for t, fs in enumerate(futs)
+                    for gid, f in zip(schedule[t::4], fs)]
+
+        pass_once()                         # warm: learn rates, replicate
+        e.reset_stats()
+        t0 = time.perf_counter()
+        outs = pass_once()
+        wall = time.perf_counter() - t0
+        runs[mode] = (outs, e.stats(), wall)
+        engines[mode] = e
+    oracle = {k: csr_oracle(torch, g, feats[k], nnz_chunk)
+              for k, g in graphs.items()}
+    for (ga, a), (gb, b) in zip(runs["on"][0], runs["off"][0]):
+        if ga != gb or not torch.equal(a, b) or \
+                not torch.equal(a.double(), oracle[ga]):
+            raise AssertionError(f"zipf {ga}: replicated answer differs")
+    on, off = runs["on"][1], runs["off"][1]
+    for mode, (_, st, wall) in runs.items():
+        log(f"zipf replication {mode}: {ZIPF_REQUESTS} requests in "
+            f"{wall * 1e3:.1f} ms; per-slot requests "
+            f"{st['fleet_device_requests']}, dispatches "
+            f"{st['fleet_device_dispatches']}, feature/block sharded "
+            f"{st['fleet_feature_sharded']}/{st['fleet_block_sharded']}; "
+            f"occupancy {st['fleet_occupancy']:.3f}; promotions "
+            f"{st['fleet_promotions']}, replicated keys "
+            f"{st['cache_replicated_keys']}, replica copies "
+            f"{st['cache_replica_copies']}; busy s "
+            + ", ".join(f"{v:.4f}" for v in st["fleet_device_busy_s"]))
+    used = {m: sum(1 for r in runs[m][1]["fleet_device_requests"] if r > 0)
+            for m in runs}
+    if on["fleet_promotions"] < 1 or on["cache_replica_copies"] < 1 \
+            or used["on"] <= used["off"]:
+        raise AssertionError(f"zipf replication: promotions "
+                             f"{on['fleet_promotions']}, slots used {used}")
+    for e in engines.values():
+        e.close()
+    hot = max(set(schedule), key=schedule.count)
+    return [on, off], graphs[hot], feats[hot]
+
+
+def fleet_mutate(torch, slots, g, x, nnz_chunk):
+    """Phase 15(d): mutate() on a graph replicated to every slot while two
+    threads read it; every read equals one published version's product,
+    and the new version is staged on the primary and every replica. The
+    engine replicates whatever it serves (``rate_per_replica`` 1e-6), so
+    no replica is demoted during the race."""
+    from repro_torch.serve.fleet import FleetGraphEngine
+    e = FleetGraphEngine(devices=slots, backend="accel",
+                         rate_per_replica=1e-6, max_replicas=len(slots))
+    key = e.register_graph("hot", g).key
+    primary = e.cache.device_index_of(key)
+    extras = [m for m in range(len(slots)) if m != primary]
+    for m in extras:
+        if not e.cache.add_replica(key, m):
+            raise AssertionError(f"could not replicate to slot {m}")
+    deltas, chain = chain_deltas(g, 15, integer=True)
+    C = e.config.deg_bound
+    stop = threading.Event()
+    reads, errors = [], []
+
+    def reader():
+        # two requests in flight per reader, so flushes hold groups of
+        # several requests, which split over the replicas
+        while not stop.is_set():
+            try:
+                futs = [e.submit("hot", x) for _ in range(2)]
+                reads.extend(f.result(timeout=600) for f in futs)
+            except BaseException as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+                return
+    readers = [threading.Thread(target=reader) for _ in range(2)]
+    for th in readers:
+        th.start()
+    t0 = time.perf_counter()
+    for d in deltas:
+        e.mutate("hot", d).result(timeout=600)
+    t_mut = time.perf_counter() - t0
+    stop.set()
+    for th in readers:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a reader did not finish")
+    if errors:
+        raise errors[0]
+    seen = [match_version(torch, chain, x, y, C, nnz_chunk, True)
+            for y in reads]
+    new_key = e.plan_for("hot").key
+    held = e.cache.replica_devices(new_key)
+    staged = [e.cache.plan_on(new_key, m) for m in held]
+    if sorted(held) != list(range(len(slots))) or held[0] != primary or any(
+            p is None or p.version != e.graph_version("hot")
+            for p in staged):
+        raise AssertionError(f"v{e.graph_version('hot')} held on {held}, "
+                             f"expected every slot, primary {primary}")
+    last = e.serve_one("hot", x)
+    if not torch.equal(last.double(), csr_oracle(torch, chain[-1], x,
+                                                 nnz_chunk)):
+        raise AssertionError("final version not exact")
+    st = e.stats()
+    log(f"fleet mutate: {len(deltas)} deltas on a {g.n_rows}-node graph "
+        f"held on slots {held} (primary first) in {t_mut:.2f}s; "
+        f"{len(reads)} racing reads, each one version's exact product "
+        f"(versions read {sorted(set(seen))}); version "
+        f"{e.graph_version('hot')} staged on every replica; repairs "
+        f"{st['plan_repairs']}, rebuilds {st['plan_rebuilds']}; per-slot "
+        f"requests {st['fleet_device_requests']}, feature/block sharded "
+        f"{st['fleet_feature_sharded']}/{st['fleet_block_sharded']}")
+    e.close()
+    return st
+
+
+def fleet_hedge(torch, dev, slots, small, nnz_chunk):
+    """Phase 15(e): hedged single-slot groups on small integer graphs
+    replicated by hand (the engine keeps every replica: ``rate_per_replica``
+    1e-6); answers exact, hedge counters logged."""
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.serve.fleet import FleetGraphEngine
+    graphs = {"tiny": integer_copy(small["tiny"], 70)}
+    for i, n in enumerate((3_000, 3_500)):
+        graphs[f"h{i}"] = integer_copy(make_power_law_graph(n, 6 * n,
+                                                            seed=80 + i),
+                                       81 + i)
+    e = FleetGraphEngine(devices=slots, backend="accel",
+                         rate_per_replica=1e-6, max_replicas=3,
+                         hedge_ms=FLEET_HEDGE_MS)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    feats = {}
+    for k, g in graphs.items():
+        key = e.register_graph(k, g).key
+        primary = e.cache.device_index_of(key)
+        for m in range(1, min(3, len(slots))):
+            e.cache.add_replica(key, (primary + m) % len(slots))
+        feats[k] = int_features(torch, g.n_cols, ZIPF_F, gen, dev)
+    oracle = {k: csr_oracle(torch, g, feats[k], nnz_chunk)
+              for k, g in graphs.items()}
+    for _ in range(8):
+        for k in graphs:
+            if not torch.equal(e.serve_one(k, feats[k]).double(), oracle[k]):
+                raise AssertionError(f"hedged {k}: not exact")
+    time.sleep(0.5)                 # let hedges still in flight finish
+    st = e.stats()
+    log(f"hedging (hedge_ms={FLEET_HEDGE_MS}): {st['requests_served']} "
+        f"requests exact; hedged dispatches {st['fleet_hedged']}, hedge "
+        f"wins {st['fleet_hedge_wins']}")
+    e.close()
+    return st
+
+
+def fleet_layer_times(torch, fleet, single, g, reps=3):
+    """Phase 15(f): one served layer of ``g`` ("Reddit") at F=2048 and
+    F=256, the fleet against a single GraphServeEngine in turns; CUDA
+    events on the caller's stream and the host clock, medians of
+    ``reps``, and the fleet's busy clocks over its timed calls."""
+    dev = fleet.device
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for F in (2048, 256):
+        x = torch.randn((g.n_cols, F), generator=gen, device=dev)
+        times = {"fleet": [], "single": []}
+        for eng in (fleet, single):
+            eng.serve_one("Reddit", x)          # warm
+        fleet.reset_stats()
+        for _ in range(reps):
+            for label, eng in (("fleet", fleet), ("single", single),
+                               ("single", single), ("fleet", fleet)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                eng.serve_one("Reddit", x)
+                end.record()
+                torch.cuda.synchronize()
+                times[label].append((start.elapsed_time(end),
+                                     (time.perf_counter() - t0) * 1e3))
+        st = fleet.stats()
+        n_fleet = len(times["fleet"])
+        med = {k: (sorted(v)[len(v) // 2][0],
+                   sorted(t for _, t in v)[len(v) // 2])
+               for k, v in times.items()}
+        busy = [b / n_fleet * 1e3 for b in st["fleet_device_busy_s"]]
+        sharded = st["fleet_sharded_busy_s"] / n_fleet * 1e3
+        strategy = ("feature" if st["fleet_feature_sharded"] else
+                    "block" if st["fleet_block_sharded"] else "single")
+        log(f"served Reddit layer F={F}: fleet ({strategy}, "
+            f"{fleet.n_devices} slots) events {med['fleet'][0]:.3f} ms, "
+            f"wall {med['fleet'][1]:.3f} ms; single GraphServeEngine events "
+            f"{med['single'][0]:.3f} ms, wall {med['single'][1]:.3f} ms "
+            f"(medians of {n_fleet}); fleet busy per call: sharded "
+            f"{sharded:.3f} ms, per-slot "
+            + ", ".join(f"{b:.3f}" for b in busy) + " ms")
+        out[F] = {"fleet": med["fleet"], "single": med["single"],
+                  "sharded_busy_ms": sharded}
+    return out
+
+
+def phase_fleet(torch, dev, graphs, small):
+    """Phase 15, slice F: fleet serving over the slots of fleet_slots()."""
+    from repro_torch.models.layers import dense_init
+    from repro_torch.serve.fleet import FleetGraphEngine
+    from repro_torch.serve.graph_engine import GraphServeEngine
+    t_phase = time.perf_counter()
+    slots = fleet_slots(torch)
+    every = dict(graphs, **small)
+    ints = {f"{k}#int": integer_copy(g, 40 + i)
+            for i, (k, g) in enumerate(every.items())}
+    gen = torch.Generator().manual_seed(0)
+    dims = DIMS + [N_CLASSES]
+    weights = [dense_init(gen, a, b, torch.float32, device=dev)
+               for a, b in zip(dims[:-1], dims[1:])]
+    dgen = torch.Generator(device=dev).manual_seed(17)
+    feats = {name: torch.randn((g.n_rows, dims[0]), generator=dgen,
+                               device=dev) for name, g in every.items()}
+    nnz_chunk = 1 << 17
+    log(f"fleet slots: {[str(s) for s in slots]}")
+
+    fleet = FleetGraphEngine(devices=slots, backend="accel")
+    t0 = time.perf_counter()
+    for name, g in dict(every, **ints).items():
+        fleet.register_graph(name, g)
+    cs = fleet.cache.stats()
+    log(f"fleet: {len(every) + len(ints)} plans placed in "
+        f"{time.perf_counter() - t0:.1f}s, shard sizes "
+        f"{cs['shard_sizes']}")
+    paths = {}
+    reset_launches()                        # the fleet path starts here
+    # (a) accel: K1 on every slot
+    seen = fleet_serve_layers(torch, fleet, every, weights, feats, slots,
+                              nnz_chunk, "fleet accel")
+    fleet_serve_integers(torch, fleet, ints, dev, nnz_chunk, "fleet accel")
+    if set(seen) != {"feature", "block", "single"}:
+        raise AssertionError(f"fleet strategies seen {seen}")
+    st_a = fleet.stats()
+    got = read_launches()
+    log(f"(a) accel: dispatches by strategy {seen}; launches {got}, "
+        f"per-slot routed {slot_routed(st_a)}")
+    if got != slot_routed(st_a) or got["K1"] < 1:
+        raise AssertionError(f"fleet accel launches {got} != per-slot "
+                             f"routed {slot_routed(st_a)}")
+    # (b) auto: each share on the kernel its shape routes to
+    routed = FleetGraphEngine(devices=slots, backend="auto",
+                              cache=fleet.cache)
+    for name, g in dict(every, **ints).items():
+        routed.register_graph(name, g)
+    reset_launches()
+    seen_b = fleet_serve_layers(torch, routed, every, weights, feats, slots,
+                                nnz_chunk, "fleet auto")
+    fleet_serve_integers(torch, routed, ints, dev, nnz_chunk, "fleet auto")
+    st_b = routed.stats()
+    got_b = read_launches()
+    log(f"(b) auto: dispatches by strategy {seen_b}; launches {got_b}, "
+        f"per-slot routed {slot_routed(st_b)}")
+    if got_b != slot_routed(st_b) or min(got_b.values()) < 1:
+        raise AssertionError(f"fleet auto launches {got_b} != per-slot "
+                             f"routed {slot_routed(st_b)}")
+    routed.close()
+    reset_launches()
+    # (c) zipf replication, (d) mutate() on a replicated graph
+    zipf_stats, hot, x_hot = fleet_zipf(torch, dev, slots, nnz_chunk)
+    zipf_stats.append(fleet_mutate(torch, slots, hot, x_hot, nnz_chunk))
+    got_cd = read_launches()
+    want_cd = {k: sum(slot_routed(s)[k] for s in zipf_stats)
+               for k in got_cd}
+    log(f"(c)-(d) launches {got_cd}, per-slot routed {want_cd}")
+    if got_cd != want_cd:
+        raise AssertionError(f"zipf/mutate launches {got_cd} != per-slot "
+                             f"routed {want_cd}")
+    paths = {k: got[k] + got_b[k] + got_cd[k] for k in got}
+    # (e) hedging, (f) layer times: not on the counted path
+    fleet_hedge(torch, dev, slots, small, nnz_chunk)
+    single = GraphServeEngine(device=dev, backend="accel",
+                              cache=fleet.cache)
+    single.register_graph("Reddit", graphs["Reddit"])
+    times = fleet_layer_times(torch, fleet, single, graphs["Reddit"])
+    single.close()
+    fleet.close()
+    log(f"phase 15 (fleet) {time.perf_counter() - t_phase:.1f}s")
+    return paths, times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2830,6 +3324,7 @@ def main():
     phase_timing_resident(torch, small, small_engine)
     k2 = phase_timing_k2(torch, small, small_engine, launches,
                          float_err["K2"])
+    fleet, _ = phase_fleet(torch, dev, graphs, small)
     del graphs, engine, small, small_engine
     gc.collect()
     torch.cuda.empty_cache()                # the GCN phases' memory goes
@@ -2849,10 +3344,11 @@ def main():
     k1["launches_by_path"] = {"serve": launches_a,
                               "train": train["launches"],
                               "mutate": mutate["K1"], "tune": tune["K1"],
-                              "sample": sample["K1"]}
-    k2["launches_by_path"] = {"routed": launches["K2"]}
+                              "sample": sample["K1"], "fleet": fleet["K1"]}
+    k2["launches_by_path"] = {"routed": launches["K2"],
+                              "fleet": fleet["K2"]}
     k3["launches_by_path"] = {"routed": launches["K3"],
-                              "mutate": mutate["K3"]}
+                              "mutate": mutate["K3"], "fleet": fleet["K3"]}
     for rec, k in ((k2, "K2"), (k3, "K3")):
         if sample[k]:
             rec["launches_by_path"]["sample"] = sample[k]

@@ -313,6 +313,21 @@ class PlanCache:
                 event.set()
             return plan
 
+    def lookup(self, key: Tuple[str, PartitionConfig]) -> Optional[PartitionPlan]:
+        """Counter-free peek (used by stats tooling); refreshes LRU order."""
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.move_to_end(key)
+            return plan
+
+    def put(self, plan: PartitionPlan) -> None:
+        """Insert a plan built elsewhere (a fleet replica copy) as is: the
+        caller has staged it where this cache's readers expect it."""
+        with self._lock:
+            evicted = self._insert_locked(plan.key, plan)
+        self._spill_evicted(evicted)
+
     def _insert_locked(self, key, plan: PartitionPlan) -> list:
         """Insert under the lock; returns evicted plans for the caller to
         spill AFTER releasing it (an O(nnz) .npz write must not stall every
@@ -334,6 +349,14 @@ class PlanCache:
             if self._spill(plan):
                 with self._lock:
                     self.spills += 1
+
+    def remove(self, key) -> bool:
+        """Drop one plan WITHOUT spilling it (replica demotion: another
+        resident copy — and possibly a spilled .npz — still exists
+        elsewhere). Returns True if the key was resident. Not counted as
+        an eviction: the caller chose to drop it, capacity didn't."""
+        with self._lock:
+            return self._plans.pop(key, None) is not None
 
     # -------------------------------------------------------- version chain
     def pin(self, key) -> int:
@@ -375,6 +398,14 @@ class PlanCache:
                 self.retired_versions += 1
             return True
 
+    # uniform names with FleetPlanCache (whose bare ``pin`` records an
+    # externally decided placement), so the engines stay cache-agnostic
+    def pin_version(self, key) -> int:
+        return self.pin(key)
+
+    def unpin_version(self, key) -> int:
+        return self.unpin(key)
+
     def publish(self, plan: PartitionPlan, retire_key=None) -> PartitionPlan:
         """Atomically make ``plan`` the current version and retire the one
         it supersedes: readers either resolve the old key (still parked if
@@ -408,6 +439,10 @@ class PlanCache:
                                      churn_threshold=churn_threshold)
         self.publish(pv.plan, retire_key=key)
         return g_new, pv
+
+    def clear(self) -> None:
+        with self._lock:
+            self._plans.clear()
 
     def keys(self):
         with self._lock:

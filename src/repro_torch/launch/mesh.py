@@ -1,0 +1,69 @@
+"""Slot lists for fleet graph serving.
+
+The reference builds a 1-D ``jax.sharding.Mesh`` over its devices; the
+port's fleet runs over **slots**: a list of ``torch.device``s in which one
+device may appear more than once. One slot per card is the real fleet;
+several slots of one card (or of the CPU) give the placement, routing,
+sharding and replication of that many devices on one card, as the
+reference's forced host device count does on the CPU. Slots that share a
+card share its SMs and memory, so they answer as a fleet of that size
+would, but are not faster than one slot.
+
+A function, not a module-level constant, so importing never touches CUDA.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..core.plan_cache import DeviceLike, resolve_device
+
+__all__ = ["graph_mesh", "resolve_slots"]
+
+
+def resolve_slots(devices: Sequence[DeviceLike]) -> List[torch.device]:
+    """Each slot as a ``torch.device`` with an index on ``cuda`` (``"cuda"``
+    means the current card), raising where CUDA is named and absent."""
+    slots = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        slots.append(dev)
+    if not slots:
+        raise ValueError("a fleet needs >= 1 slot")
+    return slots
+
+
+def graph_mesh(n_devices: Optional[int] = None,
+               device: DeviceLike = None) -> List[torch.device]:
+    """The slots of a fleet: the first ``n_devices`` visible cards.
+
+    Unlike the train meshes there is no data/model split: graph serving
+    parallelism is the paper's column (feature) parallelism and block-level
+    balancing lifted to device granularity, both of which want a flat list.
+    ``device`` is ``cuda`` unless the caller names another type; on
+    ``cuda`` the default is every visible card and more than
+    ``torch.cuda.device_count()`` raises, on ``cpu`` it is ``n_devices``
+    slots (default 1) of the one CPU.
+    """
+    kind = resolve_device(device).type
+    if kind == "cuda":
+        avail = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    elif kind == "cpu":
+        avail = None
+    else:
+        raise ValueError(f"graph_mesh runs on cuda or cpu, got {kind!r}")
+    n = (len(avail) if avail is not None else 1) if n_devices is None \
+        else int(n_devices)
+    if n < 1:
+        raise ValueError(f"graph_mesh needs >= 1 device, got n_devices={n}")
+    if avail is None:
+        return [torch.device("cpu")] * n
+    if n > len(avail):
+        raise ValueError(
+            f"graph_mesh(n_devices={n}) exceeds the {len(avail)} visible "
+            f"device(s)")
+    return avail[:n]

@@ -1,2 +1,3 @@
+from .fleet import FleetGraphEngine  # noqa: F401
 from .graph_engine import GraphRequest, GraphServeEngine  # noqa: F401
 from .scheduler import BatchScheduler, ClassSpec, QueueFullError, WorkItem  # noqa: F401

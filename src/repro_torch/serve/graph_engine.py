@@ -84,6 +84,7 @@ from ..core.plan_cache import (
 )
 from ..core.plan_repair import EdgeDelta, delta_chain_hash, repair_plan
 from ..kernels.router import RoutingDecision
+from ..launch.mesh import resolve_slots
 from ..kernels.spmm_batched import bucket_blocks, spmm_batched
 from ..tuning.search import TuningCandidate
 from ..tuning.tuner import PlanTuner, time_call
@@ -152,9 +153,13 @@ class GraphServeEngine:
         self.config = config or PartitionConfig()
         if cache is None:
             cache = PlanCache(cache_capacity, device=self.device)
-        elif cache.device != self.device:
-            raise ValueError(f"plan cache stages on {cache.device}, engine "
-                             f"runs on {self.device}")
+        else:
+            # a fleet's cache stages on several slots, the first of them
+            # the engine's own device
+            staged = getattr(cache, "devices", None) or [cache.device]
+            if resolve_slots([self.device]) != resolve_slots(staged[:1]):
+                raise ValueError(f"plan cache stages on {staged[0]}, engine "
+                                 f"runs on {self.device}")
         self.cache = cache
         self.backend = backend
         self.max_graphs_per_batch = max_graphs_per_batch
@@ -548,7 +553,7 @@ class GraphServeEngine:
         plans = {gid: self.plan_for(gid) for gid in order}
         pinned = [p.key for p in plans.values()]
         for k in pinned:
-            self.cache.pin(k)
+            self.cache.pin_version(k)
         try:
             # a raising dispatch aborts the remaining chunks: their items
             # are failed by the scheduler with the same exception, while
@@ -559,7 +564,7 @@ class GraphServeEngine:
                     [(gid, groups[gid], plans[gid]) for gid in chunk])
         finally:
             for k in pinned:
-                self.cache.unpin(k)
+                self.cache.unpin_version(k)
 
     # --------------------------------------------------------------- mutation
     def _apply_mutation(self, gid: str, grp: List[WorkItem]) -> None:
@@ -571,7 +576,9 @@ class GraphServeEngine:
         version publishes atomically — the old version is retired and
         reclaimed when its last pinned reader drains. The repair's
         ``torch.cat`` of the slabs runs on this (the scheduler's) thread's
-        current stream, the stream every dispatch of the engine runs on.
+        current stream, the stream every dispatch of this engine runs on;
+        a fleet's cache synchronizes that stream before it publishes, since
+        its slots read plans on streams of their own.
         """
         with self._mutate_lock:
             with self._bind_lock:
@@ -625,15 +632,19 @@ class GraphServeEngine:
             self._versions[gid] = plan.version
 
     def _dispatch(self, batch: List[Tuple[str, List[WorkItem],
-                                          PartitionPlan]]) -> None:
-        """One fused kernel call over up to max_graphs_per_batch graphs."""
+                                          PartitionPlan]],
+                  device: Optional[torch.device] = None) -> None:
+        """One fused kernel call over up to max_graphs_per_batch graphs, on
+        ``device`` (the engine's own by default; a fleet slot's otherwise),
+        on the thread's current stream there."""
+        dev = device or self.device
         t0 = time.perf_counter()
         plans: List[PartitionPlan] = []
         xs: List[torch.Tensor] = []
         col_splits: List[List[int]] = []
         for _gid, grp, plan in batch:
             feats = [torch.as_tensor(it.payload[1], dtype=torch.float32,
-                                     device=self.device) for it in grp]
+                                     device=dev) for it in grp]
             plans.append(plan)
             x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
             if self.feature_bucket:
@@ -653,8 +664,17 @@ class GraphServeEngine:
             [p.slabs for p in plans], xs, [p.n_rows for p in plans],
             backend=backend, pad_blocks_to=pad_to, return_decision=True,
             grid_order=grid_order)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        # callers read answers on the default stream: on another stream (a
+        # fleet slot's) the default stream waits for the un-permutes below,
+        # and each answer is marked as used there, so the allocator does
+        # not hand its memory back to this stream while the caller's
+        # kernels may still read it
+        stream = foreign = None
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            stream.synchronize()
+            if stream != torch.cuda.default_stream(dev):
+                foreign = torch.cuda.default_stream(dev)
         dt = time.perf_counter() - t0         # this dispatch's wall time
 
         executed = (decision.backend if decision is not None
@@ -683,12 +703,16 @@ class GraphServeEngine:
         wait_s = 0.0
         for (_gid, grp, plan), out, widths in zip(batch, outs, col_splits):
             out = out[plan.inv_perm]          # back to original row order
+            if foreign is not None:
+                out.record_stream(foreign)
             sliced, wait = self._slice_answers(grp, widths, out, now)
             answers.extend(sliced)
             n_req += len(grp)
             n_rows += plan.n_rows * len(grp)
             n_vals += plan.n_rows * sum(widths)
             wait_s += wait
+        if foreign is not None:
+            foreign.wait_stream(stream)
         with self._counters_lock:
             self.requests_served += n_req
             self.rows_served += n_rows

@@ -35,6 +35,13 @@ promote (the candidates of the tpu default and of paper (12, 32)), exact
 on integer graphs with split rows; an engine with a forced-win tuner
 promotes on the card with its shadows on a stream of their own; and a
 2-hop full-fanout sampled aggregation through ``auto`` is exact.
+
+Slice F runs the sharded SpMM on slots of one card, each share on its own
+CUDA stream through K1, K2 or K3 (exact against the plain version on
+integer graphs, one launch per slot), and a ``FleetGraphEngine`` over
+four slots of one card (single, feature- and block-sharded dispatches and
+a ``mutate()``, exact, with K1's launches equal to the per-slot routed
+count).
 """
 import time
 
@@ -717,3 +724,102 @@ def test_sampled_two_hop_aggregate_through_auto_is_exact(cuda):
         assert engine.stats()["routed_resident"] == 2
     finally:
         engine.close()
+
+
+# ---------------------------------------------------------------- slice F
+def _int_csr(n, e, seed):
+    g = make_power_law_graph(n, e, seed=seed)
+    vals = np.random.default_rng(seed).integers(1, 4, g.nnz)
+    return CSRGraph(g.rowptr, g.colidx, vals.astype(np.float32), g.n_cols)
+
+
+_REGIME_KERNEL = {"resident": spmm_block_slabs,
+                  "windowed": spmm_block_slabs_windowed,
+                  "hbm": spmm_block_slabs_hbm}
+
+
+@pytest.mark.parametrize("n_slots", [1, 4])
+@pytest.mark.parametrize("regime", ["resident", "windowed", "hbm"])
+@pytest.mark.parametrize("strategy", ["feature", "block"])
+def test_sharded_spmm_on_slot_streams_is_exact(cuda, strategy, regime,
+                                               n_slots):
+    from repro_torch.distributed import (spmm_block_sharded,
+                                         spmm_feature_sharded)
+    g = _int_csr(6000, 40000, 3)          # > 4096 rows: K2 takes 2 windows
+    plan = build_partition_plan(g, PartitionConfig(), device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        -4, 5, (g.n_cols, 258)).astype(np.float32))
+    want = spmm_block_slabs_plain(
+        *(plan.slabs[k].cpu() for k in ("colidx", "values", "rowloc",
+                                        "out_row")), x, plan.n_rows)
+    slots = [torch.device("cuda", 0)] * n_slots
+    streams = [torch.cuda.Stream(d) for d in slots]
+    kernel = _REGIME_KERNEL[regime]
+    kernel.launches = 0
+    if strategy == "feature":
+        got = spmm_feature_sharded(plan.slabs, x.to(cuda), plan.n_rows, slots,
+                                   regime=regime, streams=streams)
+    else:
+        got, live = spmm_block_sharded(plan.slabs, x.to(cuda), plan.n_rows,
+                                       slots, regime=regime, streams=streams)
+        assert int(live.sum()) == plan.num_blocks
+    torch.cuda.synchronize()
+    assert kernel.launches == n_slots
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fleet_engine_on_four_slots_of_one_card(cuda):
+    from repro_torch.serve import FleetGraphEngine
+    slots = ["cuda:0"] * 4
+    fleet = FleetGraphEngine(devices=slots, backend="accel",
+                             replicate_hot=False)
+    rng = np.random.default_rng(2)
+    graphs = {f"g{i}": _int_csr(300 + 50 * i, 2000 + 100 * i, i)
+              for i in range(5)}
+    graphs["big"] = _int_csr(6000, 40000, 9)           # block-sharded
+    widths = {gid: 16 for gid in graphs}
+    widths["g0"] = 4 * 128                              # feature-sharded
+    try:
+        assert len({id(s) for s in fleet._streams}) == 4
+        for gid, g in graphs.items():
+            fleet.register_graph(gid, g)
+        spmm_block_slabs.launches = 0
+        for rnd in range(2):
+            feats = {gid: torch.from_numpy(rng.integers(
+                -4, 5, (g.n_cols, widths[gid])).astype(np.float32)).to(cuda)
+                for gid, g in graphs.items()}
+            outs = {gid: fleet.submit(gid, x) for gid, x in feats.items()}
+            for gid, fut in outs.items():
+                g = graphs[gid]
+                plan = build_partition_plan(g, PartitionConfig(),
+                                            device="cpu")
+                want = spmm_block_slabs_plain(
+                    *(plan.slabs[k] for k in ("colidx", "values", "rowloc",
+                                              "out_row")),
+                    feats[gid].cpu(), plan.n_rows)[plan.inv_perm]
+                assert torch.equal(fut.result(timeout=120).cpu(), want), gid
+        st = fleet.stats()
+        assert st["fleet_feature_sharded"] >= 1
+        assert st["fleet_block_sharded"] >= 1
+        assert spmm_block_slabs.launches == st["slot_routed_resident"]
+        # a mutation publishes on the primary's card; the next read sees it
+        plan = fleet.plan_for("g1")
+        g1 = graphs["g1"]
+        delta = EdgeDelta(insert_src=np.array([0, 1]),
+                          insert_dst=np.array([2, 3]),
+                          insert_val=np.array([2.0, 3.0], np.float32),
+                          delete_src=np.array([], np.int64),
+                          delete_dst=np.array([], np.int64),
+                          on_duplicate="replace")
+        fleet.mutate("g1", delta).result(timeout=120)
+        g_new = delta.apply(g1)
+        x = torch.ones((g1.n_cols, 16), device=cuda)
+        fresh = build_partition_plan(g_new, PartitionConfig(), device="cpu")
+        want = spmm_block_slabs_plain(
+            *(fresh.slabs[k] for k in ("colidx", "values", "rowloc",
+                                       "out_row")),
+            x.cpu(), fresh.n_rows)[fresh.inv_perm]
+        assert torch.equal(fleet.serve_one("g1", x).cpu(), want)
+        assert fleet.plan_for("g1").version == plan.version + 1
+    finally:
+        fleet.close()

@@ -184,6 +184,38 @@ Phases (any failure exits non-zero and prints no result line):
    in turns, with the fleet's busy clocks. The K1/K2/K3 launches of
    (a)-(d) are the ``"fleet"`` entry of each record's
    ``launches_by_path``.
+16. slice G's cross-host serving (after phase 14, the parent holding no
+   phase's tensors): ``run_fleet`` starts two worker processes
+   (``python -c``, gloo over ``tcp://localhost``), each with MH_SLOTS
+   slots of the one card and a ``MultihostGraphEngine(backend="auto")``
+   (``multihost_worker``). Both register Reddit, Arxiv (full size,
+   normalized as phases 4-6 build them), the ``25m`` and ``tiny`` preset
+   graphs and an integer copy of each (values 1-2); only each plan's owner
+   (the ``PlacementDirectory``) builds it. After reference answers from a
+   ``GraphServeEngine`` on the card (their launches not counted), both
+   ranks serve all 8 graphs concurrently (F=256 for Reddit and Arxiv,
+   2048 for the presets), each forwarding what the other owns while it
+   answers the other's forwards: answers within the summation bound plus
+   the slot and window levels, integer copies exact; forwarded >= 1,
+   answered >= 1, no failover, both hosts carrying placements, the
+   scheduler's invariant. Then, in turns, each rank's request per graph
+   (local where it owns the plan, forwarded where the peer does) and the
+   bytes on the wire of each forward; a phase gate over the data plane;
+   ``serve_global(Reddit)`` at F=256 (block over the 4 global slots, K3
+   shares, live blocks balanced within 1) within the bound, its integer
+   copy exact and bit-equal to ``spmm_block_sharded`` over 4 slots of the
+   card in one process, with the shares' CUDA-event ms, the stage + gloo
+   gather ms, the fold ms and the wall ms beside the single-card
+   ``serve_one``; one 250-edge delta on the integer Arxiv copy from rank
+   0: both ranks at version 1, one repair and no rebuild on the owner,
+   one read per rank exact on the new version; Reddit's ``GraphStore``
+   split in two, a 2-hop frontier (fanouts [10, 10]) of 256 seeds
+   straddling the boundary sampled through ``FrontierExchange`` identical
+   to the monolithic store's with no failover, then aggregated through a
+   ``SamplingService`` on the worker's engine within its bound. Each
+   worker's K1/K2/K3 launches (less the reference answers') equal its
+   per-slot routed counts; their sums are the ``"multihost"`` entry of
+   ``launches_by_path``.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -1440,19 +1472,19 @@ def phase_train(torch, dev, card_line):
             "peak_gib": peak}
 
 
-def chain_deltas(g, seed, integer, uniform=False):
-    """MUTATE_DELTAS deltas applied in turn from ``g``: each MUTATE_EDGES
-    inserts at random and MUTATE_EDGES deletes, one existing edge from each
-    of MUTATE_EDGES distinct non-empty rows, or with ``uniform`` drawn
-    uniformly over the edges. (Uniform deletes land mostly on the hub rows,
-    re-emit their split blocks at every repair and may trip the
-    fragmentation guard.) Returns the deltas and the graphs of the chain
-    (``g`` first)."""
+def chain_deltas(g, seed, integer, uniform=False, n=None):
+    """``n`` (default MUTATE_DELTAS) deltas applied in turn from ``g``:
+    each MUTATE_EDGES inserts at random and MUTATE_EDGES deletes, one
+    existing edge from each of MUTATE_EDGES distinct non-empty rows, or
+    with ``uniform`` drawn uniformly over the edges. (Uniform deletes land
+    mostly on the hub rows, re-emit their split blocks at every repair and
+    may trip the fragmentation guard.) Returns the deltas and the graphs of
+    the chain (``g`` first)."""
     import numpy as np
     from repro_torch.core.plan_repair import EdgeDelta
     rng = np.random.default_rng(seed)
     graphs, deltas = [g], []
-    for _ in range(MUTATE_DELTAS):
+    for _ in range(MUTATE_DELTAS if n is None else n):
         cur = graphs[-1]
         k = MUTATE_EDGES
         deg = np.diff(cur.rowptr)
@@ -3299,6 +3331,440 @@ def phase_fleet(torch, dev, graphs, small):
     return paths, times
 
 
+MH_PROCESSES = 2           # phase 16: worker processes on the one card
+MH_SLOTS = 2               # slots of the card in each worker
+MH_F = {"Reddit": 256, "Arxiv": 256, "25m": 2048, "tiny": 2048}
+MH_GLOBAL = "Reddit"       # the graph of the collective dispatch
+MH_GLOBAL_REPS = 3         # serve_global calls (the first stages shares)
+MH_MUTATE = "Arxiv"        # its integer copy takes one delta from rank 0
+MH_SEEDS = 256             # straddling the store's partition boundary
+MH_FANOUTS = [10, 10]
+MH_REPS = 3                # timed requests per graph
+MH_GATE_S = 300.0          # a phase gate waits this long for the peer
+MH_GLOO_TIMEOUT_S = 120.0
+MH_TIMEOUT_S = 540.0       # the whole two-process fleet
+
+
+def launch_snapshot():
+    """Every kernel's launches and launches by gather instance."""
+    return {k: (fn.launches, dict(fn.launches_by_instance))
+            for k, fn in kernel_counters().items()}
+
+
+class LaunchLedger:
+    """The launches of the multihost path: every launch since ``start``
+    less those made inside ``aside()`` (reference answers and
+    comparisons), which run only while no peer forwards to this rank."""
+
+    def __init__(self):
+        self.base = launch_snapshot()
+        self.aside_by = {k: [0, {}] for k in self.base}
+
+    def aside(self, fn):
+        before = launch_snapshot()
+        out = fn()
+        after = launch_snapshot()
+        for k, (n, inst) in after.items():
+            self.aside_by[k][0] += n - before[k][0]
+            for i, c in inst.items():
+                self.aside_by[k][1][i] = (self.aside_by[k][1].get(i, 0) + c
+                                          - before[k][1].get(i, 0))
+        return out
+
+    def path(self):
+        now = launch_snapshot()
+        out = {}
+        for k, (n, inst) in now.items():
+            out[k] = {"launches": n - self.base[k][0] - self.aside_by[k][0],
+                      "by_instance": {
+                          i: c - self.base[k][1].get(i, 0)
+                          - self.aside_by[k][1].get(i, 0)
+                          for i, c in inst.items()}}
+        return out
+
+
+def aggregate_oracle(torch, f, x, nnz_chunk, C):
+    """A frontier's pure k-hop aggregate in fp64 (outermost block first),
+    its magnitude, and the bound's depth: the largest summation k of each
+    hop's rows, plus one per hop."""
+    idx = torch.as_tensor(f.input_nodes, device=x.device)
+    h = x[idx].double()
+    m = h.abs()
+    c = 0
+    for k in range(f.num_hops - 1, -1, -1):
+        blk = f.blocks[k].graph
+        h = csr_oracle(torch, blk, h, nnz_chunk)
+        m = csr_oracle(torch, blk, m, nnz_chunk, magnitude=True)
+        c += int(summation_k(blk, C, False).max()) + 1
+    return h, m, c
+
+
+def multihost_worker():
+    """Phase 16, one worker process (started by ``phase_multihost`` through
+    ``run_fleet``): a MultihostGraphEngine over this process's slots,
+    driven with its peer as the module docstring's phase 16 says. Prints
+    one JSON record as its last line."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import gcn_normalize
+    from repro_torch.data.graphs import (make_benchmark_graph,
+                                         make_power_law_graph)
+    from repro_torch.distributed.multihost import (FrontierExchange,
+                                                   initialize_multihost)
+    from repro_torch.distributed.shard_spmm import spmm_block_sharded
+    from repro_torch.sampling import (GraphStore, PartitionedStoreClient,
+                                      SamplingService, sample_frontier)
+    from repro_torch.serve import (GraphRequest, GraphServeEngine,
+                                   MultihostGraphEngine)
+    t_start = time.perf_counter()
+    ctx = initialize_multihost(timeout_s=MH_GLOO_TIMEOUT_S)
+    rank, peer_rank = ctx.process_index, 1 - ctx.process_index
+    dev = ctx.local_devices[0]
+    card = dev.type == "cuda"
+    if card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    tag = f"[rank {rank}]"
+    rec = {"rank": rank, "card": card}
+
+    # the graphs as phases 4-6 build them, and integer copies (values 1-2)
+    t0 = time.perf_counter()
+    graphs = {}
+    for i, name in enumerate(GRAPHS):
+        raw, _ = make_benchmark_graph(name, seed=i)
+        graphs[name] = gcn_normalize(raw)
+        if name == MH_GLOBAL:
+            raw_global = raw
+    for name, n, e in PRESET_GRAPHS:
+        graphs[name] = gcn_normalize(make_power_law_graph(n, e, seed=0))
+    ints = {f"{k}#int": integer_copy(g, 60 + i)
+            for i, (k, g) in enumerate(graphs.items())}
+    every = dict(graphs, **ints)
+    rec["graphs_s"] = time.perf_counter() - t0
+
+    engine = MultihostGraphEngine(context=ctx, backend="auto")
+    events = {}
+
+    def on(name):
+        events[name] = threading.Event()
+        engine.server.register(f"gate-{name}",
+                               lambda _p, ev=events[name]: ev.set())
+
+    for name in ("ready", "served", "timed-0", "timed-1", "global",
+                 "mutated", "store", "done"):
+        on(name)
+    t0 = time.perf_counter()
+    owned = [name for name, g in every.items()
+             if engine.register_graph(name, g) is not None]
+    rec["owned"] = owned
+    rec["register_s"] = time.perf_counter() - t0
+    engine.connect_peers()
+    peer = engine.peers[peer_rank]
+
+    def signal(name):
+        peer.request(f"gate-{name}", None)
+
+    def wait(name):
+        if not events[name].wait(MH_GATE_S):
+            raise AssertionError(f"{tag} peer never reached {name!r}")
+
+    def gate(name):
+        signal(name)
+        wait(name)
+
+    # reference answers on one card, before any request is forwarded
+    nnz_chunk = 1 << 17
+    C = engine.config.deg_bound
+    gen = torch.Generator(device=dev).manual_seed(70)
+    feats = {}
+    for name, g in every.items():
+        F = MH_F[name.split("#")[0]]
+        feats[name] = (int_features(torch, g.n_cols, F, gen, dev)
+                       if name in ints else
+                       torch.randn((g.n_cols, F), generator=gen, device=dev))
+    ledger = LaunchLedger()
+    single = GraphServeEngine(device=dev, backend="auto", cache=engine.cache,
+                              max_graphs_per_batch=1)
+    for name, g in every.items():
+        single.register_graph(name, g)
+    want = ledger.aside(lambda: {
+        r.graph_id: r.out for r in single.serve(
+            [GraphRequest(name, x) for name, x in feats.items()])})
+    gate("ready")
+
+    # (5) both ranks serve every graph concurrently, each forwarding what
+    # the other owns while it answers the other's forwards
+    t0 = time.perf_counter()
+    got = {r.graph_id: r.out for r in engine.serve(
+        [GraphRequest(name, x) for name, x in feats.items()])}
+    rec["serve_all_ms"] = (time.perf_counter() - t0) * 1e3
+    errs = {}
+    for name, y in got.items():
+        g, x = every[name], feats[name]
+        if name in ints:
+            if not (torch.equal(y, want[name]) and torch.equal(
+                    y.double(), csr_oracle(torch, g, x, nnz_chunk))):
+                raise AssertionError(f"{tag} {name}: not exact")
+            errs[name] = 0.0
+        else:
+            # a share of a block-sharded dispatch adds one partial per slot
+            # and a K2 share its window partials: 4 more levels at most
+            errs[name] = csr_check(torch, g, x, y, C, nnz_chunk,
+                                   MH_SLOTS + 4)
+            csr_check(torch, g, x, want[name], C, nnz_chunk, 4)
+    rec["max_err"] = errs
+    gate("served")
+    st = engine.stats()
+    if st["fleet_forwarded"] < 1 or st["fleet_remote_served"] < 1:
+        raise AssertionError(f"{tag} forwarded {st['fleet_forwarded']}, "
+                             f"answered {st['fleet_remote_served']}")
+    if st["fleet_host_failovers"] or min(st["fleet_dir_host_placements"]) < 1:
+        raise AssertionError(f"{tag} failovers {st['fleet_host_failovers']}"
+                             f", placements "
+                             f"{st['fleet_dir_host_placements']}")
+
+    # per graph: a local request where this rank owns the plan, a
+    # forwarded one where the peer does; the ranks take turns, so a
+    # forward never shares the card with the other rank's timing
+    def timed(name):
+        times = []
+        for _ in range(MH_REPS):
+            t = time.perf_counter()
+            engine.serve_one(name, feats[name])
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[MH_REPS // 2]
+
+    if rank == 1:
+        wait("timed-0")
+    rec["request_ms"] = {name: timed(name) for name in every}
+    signal(f"timed-{rank}")
+    if rank == 0:
+        wait("timed-1")
+    rec["wire_bytes"] = {}
+    for name in every:
+        x_np = feats[name].cpu().numpy()
+        ask = pickle.dumps(("serve", {"graph_id": name, "x": x_np}),
+                           protocol=pickle.HIGHEST_PROTOCOL)
+        out = np.zeros((every[name].n_rows, x_np.shape[1]), np.float32)
+        answer = pickle.dumps(("ok", out), protocol=pickle.HIGHEST_PROTOCOL)
+        rec["wire_bytes"][name] = len(ask) + len(answer) + 16
+
+    # (7) the collective dispatch over the 4 global slots, K3 shares
+    gate("global")
+    x_g = feats[MH_GLOBAL]
+    x_gi = feats[f"{MH_GLOBAL}#int"]
+    walls = []
+    for _ in range(MH_GLOBAL_REPS):
+        t = time.perf_counter()
+        y_g = engine.serve_global(MH_GLOBAL, x_g)
+        walls.append((time.perf_counter() - t) * 1e3)
+    timing = dict(engine.last_global_timing)
+    blocks = engine.stats()["fleet_block_counts"]
+    fd = engine.last_fleet_decision
+    y_gi = engine.serve_global(f"{MH_GLOBAL}#int", x_gi)
+    st = engine.stats()
+    if len(blocks) != len(ctx.global_devices) or \
+            max(blocks) - min(blocks) > 1:
+        raise AssertionError(f"{tag} global block counts {blocks}")
+    g_err = csr_check(torch, graphs[MH_GLOBAL], x_g, y_g, C, nnz_chunk,
+                      len(ctx.global_devices))
+    plan_i = engine.plan_for(f"{MH_GLOBAL}#int")
+    regime = fd.per_device.backend          # the engine's backend is auto
+    one_process = ledger.aside(lambda: spmm_block_sharded(
+        plan_i.slabs, x_gi, plan_i.n_rows,
+        [dev] * len(ctx.global_devices), regime=regime)[0][plan_i.inv_perm])
+    if not (torch.equal(y_gi, one_process) and torch.equal(
+            y_gi.double(), csr_oracle(torch, ints[f"{MH_GLOBAL}#int"], x_gi,
+                                      nnz_chunk))):
+        raise AssertionError(f"{tag} global integer answer is not the "
+                             f"one-process block sharding's")
+
+    def single_ms():
+        times = []
+        for _ in range(MH_REPS):
+            t = time.perf_counter()
+            single.serve_one(MH_GLOBAL, x_g)
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[MH_REPS // 2]
+
+    rec["global"] = {
+        "strategy": fd.strategy, "regime": regime, "blocks": blocks,
+        "max_err": g_err, "wall_ms": walls, "last": timing,
+        "single_ms": ledger.aside(single_ms),
+        "dispatches": st["fleet_global_dispatches"]}
+
+    # (8) one delta from rank 0 on the integer Arxiv copy
+    mut = f"{MH_MUTATE}#int"
+    (delta,), (_, g_new) = chain_deltas(ints[mut], 80, True, n=1)
+    if rank == 0:
+        info = engine.mutate(mut, delta).result(timeout=MH_GATE_S)
+        rec["mutate_info"] = {k: info[k] for k in ("version", "repaired",
+                                                   "reason")}
+    gate("mutated")
+    x_m = feats[mut]
+    y_m = engine.serve_one(mut, x_m)
+    if engine.graph_version(mut) != 1 or not torch.equal(
+            y_m.double(), csr_oracle(torch, g_new, x_m, nnz_chunk)):
+        raise AssertionError(f"{tag} {mut} after the delta: version "
+                             f"{engine.graph_version(mut)} or not exact")
+    st = engine.stats()
+    rec["mutation"] = {"version": engine.graph_version(mut),
+                       "plan_repairs": st["plan_repairs"],
+                       "plan_rebuilds": st["plan_rebuilds"],
+                       "broadcasts": st["fleet_mutation_broadcasts"],
+                       "remote_mutations": st["fleet_remote_mutations"]}
+
+    # (9) the Reddit store split in two, a 2-hop frontier through the
+    # exchange, then served through a SamplingService on this engine
+    t0 = time.perf_counter()
+    full = GraphStore.build(raw_global, normalize=True)
+    shards = full.partition(MH_PROCESSES)
+    bounds = [s.node_range[0] for s in shards] + [full.n_nodes]
+    FrontierExchange.serve(engine.server, shards[rank])
+    rec["store_s"] = time.perf_counter() - t0
+    gate("store")
+    exchange = FrontierExchange({peer_rank: peer})
+    client = PartitionedStoreClient(shards[rank], bounds,
+                                    exchange.remote_map(), rank)
+    seeds = np.arange(bounds[1] - MH_SEEDS // 2, bounds[1] + MH_SEEDS // 2)
+    t0 = time.perf_counter()
+    fp = sample_frontier(client.sample_in_neighbors, seeds, MH_FANOUTS,
+                         seed=7)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    fm = sample_frontier(full.sample_in_neighbors, seeds, MH_FANOUTS, seed=7)
+    if fp.content_key() != fm.content_key() or exchange.failovers:
+        raise AssertionError(f"{tag} exchanged frontier differs from the "
+                             f"monolithic one (failovers "
+                             f"{exchange.failovers})")
+    svc = SamplingService(engine, client, MH_FANOUTS, sample_seed=7)
+    x_s = torch.randn((full.n_nodes, MH_F[MH_GLOBAL]), generator=gen,
+                      device=dev)
+    y_s = svc.aggregate(seeds, x_s)
+    want_s, mag_s, c_s = aggregate_oracle(torch, fp, x_s, nnz_chunk, C)
+    rows = np.searchsorted(fp.layers[0], seeds)
+    rows_t = torch.as_tensor(rows, device=dev)
+    s_err = check_close("exchanged frontier", y_s, want_s[rows_t],
+                        c_s * U * mag_s[rows_t])
+    rec["frontier"] = {
+        "layers": [len(layer) for layer in fp.layers],
+        "remote_edges": int(client.remote_edges),
+        "local_edges": int(client.local_edges),
+        "requests": exchange.requests, "failovers": exchange.failovers,
+        "sample_ms": sample_ms, "max_err": s_err}
+
+    gate("done")
+    st = engine.stats()
+    rec["stats"] = {k: st[k] for k in (
+        "fleet_forwarded", "fleet_remote_served", "fleet_host_failovers",
+        "fleet_host_forwarded", "fleet_dir_host_placements",
+        "fleet_global_dispatches", "fleet_forward_busy_s",
+        "requests_served", "batches_dispatched", "routed_resident",
+        "routed_windowed", "routed_hbm")}
+    rec["sched_invariant"] = (st["sched_completed"] + st["sched_failed"]
+                              + st["sched_cancelled"]
+                              == st["sched_submitted"])
+    rec["launches"] = ledger.path()
+    rec["slot_routed"] = slot_routed(st)
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if card else 0.0)
+    rec["seconds"] = time.perf_counter() - t_start
+    single.close()
+    engine.close()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+
+
+def mh_worker_src(prelude=""):
+    """The ``python -c`` body of a phase 16 worker: this script imported
+    from its own directory, ``prelude`` run first."""
+    return (f"import sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n{prelude}\n"
+            f"import chip_smoke\nchip_smoke.multihost_worker()\n")
+
+
+def phase_multihost(torch, card_line, device="cuda", prelude=""):
+    """Phase 16, slice G: two worker processes of MH_SLOTS slots each on
+    the one card (``run_fleet``), each a MultihostGraphEngine(backend=
+    "auto"). Returns the K1/K2/K3 launches of the workers' paths."""
+    from repro_torch.distributed.multihost import run_fleet
+    t_phase = time.perf_counter()
+    records = run_fleet(mh_worker_src(prelude), num_processes=MH_PROCESSES,
+                        n_local_slots=MH_SLOTS, device=device,
+                        timeout_s=MH_TIMEOUT_S, cwd=ROOT)
+    recs = sorted(records, key=lambda r: r["rank"])
+    owner = {name: r["rank"] for r in recs for name in r["owned"]}
+    for r in recs:
+        tag = f"rank {r['rank']}"
+        st = r["stats"]
+        log(f"{tag}: owns {r['owned']}; graphs built in "
+            f"{r['graphs_s']:.1f}s, registered in {r['register_s']:.1f}s; "
+            f"forwarded {st['fleet_forwarded']}, answered "
+            f"{st['fleet_remote_served']} forwards, failovers "
+            f"{st['fleet_host_failovers']}, placements per host "
+            f"{st['fleet_dir_host_placements']}; all 8 graphs served "
+            f"concurrently in {r['serve_all_ms']:.1f} ms, max err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r["max_err"].items()))
+        if (st["fleet_forwarded"] < 1 or st["fleet_remote_served"] < 1
+                or st["fleet_host_failovers"] != 0
+                or min(st["fleet_dir_host_placements"]) < 1
+                or not r["sched_invariant"]):
+            raise AssertionError(f"{tag}: {st}")
+        for name, ms in r["request_ms"].items():
+            how = "local" if owner[name] == r["rank"] else "forwarded"
+            peer_ms = recs[owner[name]]["request_ms"][name]
+            log(f"{tag} {name} F={MH_F[name.split('#')[0]]}: {how} request "
+                f"{ms:.2f} ms (host clock, median of {MH_REPS})"
+                + (f" against {peer_ms:.2f} ms local on rank {owner[name]}"
+                   f"; {r['wire_bytes'][name]:,} bytes on the wire"
+                   if how == "forwarded" else "") + f"; {card_line}")
+        gl = r["global"]
+        last = gl["last"]
+        log(f"{tag} serve_global({MH_GLOBAL}) F={MH_F[MH_GLOBAL]}: "
+            f"{gl['strategy']} over the 4 global slots, shares on "
+            f"{gl['regime']}, live blocks {gl['blocks']}, max err "
+            f"{gl['max_err']:.2e}; wall ms "
+            f"{[round(w, 3) for w in gl['wall_ms']]}"
+            f" (first stages the shares); last: shares "
+            f"{last['shares_ms']:.3f} ms "
+            f"({'CUDA events' if r['card'] else 'host clock'}), stage + "
+            f"gloo gather "
+            f"{last['gather_ms']:.3f} ms ({last['gather_bytes']:,} bytes "
+            f"received), fold {last['fold_ms']:.3f} ms, wall "
+            f"{last['wall_ms']:.3f}; single-card serve_one "
+            f"{gl['single_ms']:.3f} ms; {card_line}")
+        fr = r["frontier"]
+        log(f"{tag} frontier of {MH_SEEDS} seeds across the boundary, "
+            f"fanouts {MH_FANOUTS}: layers {fr['layers']}, "
+            f"{fr['remote_edges']} edges sampled on the peer's shard in "
+            f"{fr['requests']} requests, {fr['local_edges']} locally, "
+            f"sampling {fr['sample_ms']:.1f} ms, failovers "
+            f"{fr['failovers']}; identical to the monolithic store's; "
+            f"aggregate max err {fr['max_err']:.2e}")
+        log(f"{tag}: launches {r['launches']}, per-slot routed "
+            f"{r['slot_routed']}; peak memory {r['peak_gib']:.2f} GiB; "
+            f"{r['seconds']:.1f}s")
+        path = {k: v["launches"] for k, v in r["launches"].items()}
+        if path != r["slot_routed"]:
+            raise AssertionError(f"{tag}: launches {path} != per-slot "
+                                 f"routed {r['slot_routed']}")
+    mut = [r["mutation"] for r in recs]
+    log(f"mutation from rank 0 ({recs[0]['mutate_info']}): " + "; ".join(
+        f"rank {r['rank']} {m}" for r, m in zip(recs, mut)))
+    if ({m["version"] for m in mut} != {1}
+            or sum(m["plan_repairs"] for m in mut) != 1
+            or sum(m["plan_rebuilds"] for m in mut) != 0):
+        raise AssertionError(f"mutation did not converge with one repair: "
+                             f"{mut}")
+    launches = {k: sum(r["launches"][k]["launches"] for r in recs)
+                for k in ("K1", "K2", "K3")}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"multihost launches {launches}")
+    log(f"phase 16 (multihost, {MH_PROCESSES} processes x {MH_SLOTS} "
+        f"slots) {time.perf_counter() - t_phase:.1f}s; launches {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3341,14 +3807,19 @@ def main():
     sample = phase_sample(torch, dev, card_line)
     gc.collect()
     torch.cuda.empty_cache()
+    # the workers share the card: this process holds no phase's tensors
+    multihost = phase_multihost(torch, card_line)
     k1["launches_by_path"] = {"serve": launches_a,
                               "train": train["launches"],
                               "mutate": mutate["K1"], "tune": tune["K1"],
-                              "sample": sample["K1"], "fleet": fleet["K1"]}
+                              "sample": sample["K1"], "fleet": fleet["K1"],
+                              "multihost": multihost["K1"]}
     k2["launches_by_path"] = {"routed": launches["K2"],
-                              "fleet": fleet["K2"]}
+                              "fleet": fleet["K2"],
+                              "multihost": multihost["K2"]}
     k3["launches_by_path"] = {"routed": launches["K3"],
-                              "mutate": mutate["K3"], "fleet": fleet["K3"]}
+                              "mutate": mutate["K3"], "fleet": fleet["K3"],
+                              "multihost": multihost["K3"]}
     for rec, k in ((k2, "K2"), (k3, "K3")):
         if sample[k]:
             rec["launches_by_path"]["sample"] = sample[k]

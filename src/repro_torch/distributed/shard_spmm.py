@@ -28,21 +28,38 @@ launches the kernel of its regime, so on the card no share runs the plain
 version. ``streams`` gives each slot a CUDA stream: the shares then run
 concurrently, each after the caller's stream has produced X, and the
 caller's stream waits for every share before it combines them.
+
+**Across processes.** Block sharding also runs over the GLOBAL slots of a
+multi-host fleet (:func:`repro_torch.launch.mesh.multihost_graph_mesh`,
+``(process_index, local_slot)`` pairs): the round-robin order is over every
+process's slots, each process runs its own slots' shares
+(:func:`commit_block_shards_global` stages them), and the cross-process sum
+— the reference's ``psum`` — is a gather: each process stages its partials
+to the host, ``all_gather``s them over gloo (which takes no CUDA tensor in
+``all_gather``; NCCL refuses two ranks on one card) and folds all of them
+left to right in global slot order on its first slot. The fold is the
+single-process fold over the same slot count, so the answer equals
+:func:`spmm_block_sharded` over that many slots in one process, bit for bit
+wherever the shares' kernels give the same partials (every integer-valued
+graph). Every process must enter such a call with the same arguments.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..kernels.ops import spmm_blocked
 from ..kernels.spmm_batched import _KERNELS
+from .multihost import GlobalSlot
 
 __all__ = [
     "round_robin_block_order",
     "prepare_feature_shards",
     "prepare_block_shards",
+    "commit_block_shards_global",
     "spmm_feature_sharded",
     "spmm_block_sharded",
 ]
@@ -51,6 +68,7 @@ _SLAB_KEYS = ("colidx", "values", "rowloc", "out_row")
 _REGIMES = dict(_KERNELS, blocked=spmm_blocked)
 
 Shard = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Slot = Union[torch.device, GlobalSlot]
 
 
 def round_robin_block_order(num_blocks: int, n_devices: int
@@ -203,12 +221,129 @@ def spmm_feature_sharded(slabs: Dict, x: torch.Tensor, n_rows: int,
     return torch.cat(parts, dim=1)[:, :F]
 
 
+def _mesh_spans_processes(slots: Sequence[Slot]) -> bool:
+    """True when ``slots`` are global ``(process_index, local_slot)`` pairs
+    of more than one process — the global serving slots of a multi-host
+    fleet."""
+    procs = {s[0] for s in slots if isinstance(s, tuple)}
+    return len(procs) > 1
+
+
+def commit_block_shards_global(slabs: Dict, n_rows: int,
+                               global_slots: Sequence[GlobalSlot],
+                               process_index: int,
+                               local_devices: Sequence[torch.device]
+                               ) -> Tuple[Dict[int, Shard], np.ndarray]:
+    """This process's shares of a block-sharded dispatch over the GLOBAL
+    slots: ``({global slot index: slab shard on its local slot's device},
+    live block counts of every global slot)``.
+
+    The round-robin order is over ``len(global_slots)`` slots, so share
+    ``k`` holds the blocks :func:`prepare_block_shards` hands slot ``k`` of
+    a single process with that many slots. Every process builds the same
+    plan from the same graph and keeps only its own shares. Memoize per
+    plan (the fleet engine keeps it in its prep cache): the slabs are
+    immutable, so the staging is paid once.
+    """
+    d = len(global_slots)
+    B = int(slabs["colidx"].shape[0])
+    order, live = round_robin_block_order(B, d)
+    padded = _pad_blocks(slabs, len(order), int(n_rows))
+    per = len(order) // d
+    src = slabs["colidx"].device
+    shares = {}
+    for k, (proc, local) in enumerate(global_slots):
+        if proc != process_index:
+            continue
+        idx = torch.from_numpy(order[k * per:(k + 1) * per]).to(src)
+        shares[k] = tuple(padded[key].index_select(0, idx).to(
+            local_devices[local]) for key in _SLAB_KEYS)
+    return shares, live
+
+
+def _mark(device: torch.device):
+    """A point on ``device``'s current stream: a CUDA event on the card,
+    the host clock elsewhere."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _elapsed_ms(start, end) -> float:
+    if isinstance(start, float):
+        return (end - start) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _block_sharded_global(
+        slabs: Dict, x: torch.Tensor, n_rows: int,
+        global_slots: Sequence[GlobalSlot], kernel, *,
+        prepared: Optional[Tuple[Dict[int, Shard], np.ndarray]],
+        streams: Optional[Sequence], local_devices: Sequence[torch.device],
+        timings: Optional[Dict[str, float]]
+        ) -> Tuple[torch.Tensor, np.ndarray]:
+    """The multi-host branch of :func:`spmm_block_sharded`: this process's
+    shares, then the host-staged gather and the slot-order fold."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    shares, live = (prepared if prepared is not None
+                    else commit_block_shards_global(
+                        slabs, n_rows, global_slots, rank, local_devices))
+    own = sorted(shares)
+    slots = [global_slots[k][1] for k in own]
+    primary = local_devices[0]
+    x = x.float().contiguous()
+    t0 = _mark(primary)
+    parts = _run_slots(
+        [local_devices[i] for i in slots],
+        [streams[i] for i in slots] if streams is not None else None,
+        lambda j: kernel(*shares[own[j]], x.to(local_devices[slots[j]]),
+                         int(n_rows)))
+    t1 = _mark(primary)
+    # stage to the host (the copy waits for the caller's stream, which
+    # waited for every share), then gather every process's partials
+    h0 = time.perf_counter()
+    by_proc: Dict[int, List[int]] = {}
+    for k, (proc, _) in enumerate(global_slots):
+        by_proc.setdefault(proc, []).append(k)
+    width = max(len(ks) for ks in by_proc.values())
+    F = int(x.shape[1])
+    staged = torch.zeros((width, int(n_rows), F), dtype=torch.float32)
+    for j, part in enumerate(parts):
+        staged[j].copy_(part)
+    gathered = [torch.empty_like(staged)
+                for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, staged)
+    h1 = time.perf_counter()
+    # fold left to right in global slot order, as the single-process fold
+    # does; this process's own partials are taken from the device
+    mine = dict(zip(own, parts))
+    t2 = _mark(primary)
+    out = None
+    for k, (proc, _) in enumerate(global_slots):
+        part = mine.get(k)
+        if part is None:
+            part = gathered[proc][by_proc[proc].index(k)].to(primary)
+        out = part if out is None else out + part
+    if timings is not None:
+        t3 = _mark(primary)
+        timings.update(shares_ms=_elapsed_ms(t0, t1),
+                       gather_ms=(h1 - h0) * 1e3,
+                       fold_ms=_elapsed_ms(t2, t3),
+                       gather_bytes=staged.numel() * 4 * (len(gathered) - 1))
+    return out, live
+
+
 def spmm_block_sharded(slabs: Dict, x: torch.Tensor, n_rows: int,
-                       devices: Sequence[torch.device], *,
-                       prepared: Optional[Tuple[List[Shard],
-                                                np.ndarray]] = None,
+                       devices: Sequence[Slot], *,
+                       prepared: Optional[Tuple] = None,
                        regime: str = "resident",
-                       streams: Optional[Sequence] = None
+                       streams: Optional[Sequence] = None,
+                       local_devices: Optional[Sequence[torch.device]] = None,
+                       timings: Optional[Dict[str, float]] = None
                        ) -> Tuple[torch.Tensor, np.ndarray]:
     """A'.X with the plan's blocks round-robin across the slots.
 
@@ -218,8 +353,27 @@ def spmm_block_sharded(slabs: Dict, x: torch.Tensor, n_rows: int,
     ``(out, live_counts)`` — the per-slot REAL block counts, the balance
     evidence the fleet stats export. ``prepared`` takes a memoized
     :func:`prepare_block_shards` result.
+
+    ``devices`` may be the GLOBAL slots of a multi-host fleet
+    (:func:`repro_torch.launch.mesh.multihost_graph_mesh`): this process
+    then runs its own slots' shares on ``local_devices`` (``streams``
+    indexed by local slot), ``prepared`` takes a memoized
+    :func:`commit_block_shards_global` result, and the partials of every
+    process are gathered over the default process group and
+    folded in global slot order; the answer lies on ``local_devices[0]``
+    of every process. That call is SPMD-collective: EVERY process must
+    enter it with identical arguments (the ``serve_global`` contract).
+    ``timings``, where given, receives the shares' ms, the host staging and
+    gather's ms, the fold's ms and the bytes received.
     """
     kernel = _kernel(regime)
+    if _mesh_spans_processes(devices):
+        if local_devices is None:
+            raise ValueError("global slots need this process's "
+                             "local_devices")
+        return _block_sharded_global(
+            slabs, x, n_rows, devices, kernel, prepared=prepared,
+            streams=streams, local_devices=local_devices, timings=timings)
     shards, live = (prepared if prepared is not None
                     else prepare_block_shards(slabs, n_rows, devices))
     x = x.float().contiguous()

@@ -7,9 +7,11 @@ several slots of one card (or of the CPU) give the placement, routing,
 sharding and replication of that many devices on one card, as the
 reference's forced host device count does on the CPU. Slots that share a
 card share its SMs and memory, so they answer as a fleet of that size
-would, but are not faster than one slot.
+would, but are not faster than one slot. A multi-host fleet's global slots
+(:func:`multihost_graph_mesh`) are ``(process_index, local_slot)`` pairs,
+process-major.
 
-A function, not a module-level constant, so importing never touches CUDA.
+Functions, not module-level constants, so importing never touches CUDA.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from ..core.plan_cache import DeviceLike, resolve_device
 
-__all__ = ["graph_mesh", "resolve_slots"]
+__all__ = ["graph_mesh", "multihost_graph_mesh", "resolve_slots"]
 
 
 def resolve_slots(devices: Sequence[DeviceLike]) -> List[torch.device]:
@@ -34,6 +36,25 @@ def resolve_slots(devices: Sequence[DeviceLike]) -> List[torch.device]:
     if not slots:
         raise ValueError("a fleet needs >= 1 slot")
     return slots
+
+
+def multihost_graph_mesh(context=None, device: DeviceLike = None) -> list:
+    """The global slot list spanning EVERY process's slots.
+
+    The cross-host analogue of :func:`graph_mesh`: after
+    :func:`~repro_torch.distributed.multihost.initialize_multihost`,
+    ``context.global_devices`` — ``(process_index, local_slot)`` pairs in
+    process-major order. A dispatch over these slots is SPMD-collective:
+    every process must enter it with the same arguments (the
+    ``MultihostGraphEngine.serve_global`` contract). On a single process
+    it degenerates to that process's own slots: ``context.local_devices``,
+    or ``graph_mesh(device=device)`` without a context.
+    """
+    if context is None:
+        return graph_mesh(device=device)
+    if context.process_count <= 1:
+        return list(context.local_devices)
+    return list(context.global_devices)
 
 
 def graph_mesh(n_devices: Optional[int] = None,

@@ -24,11 +24,11 @@ cross-partition exchange never translates ids.
 
 Sampling runs on the host in numpy, with one generator per sampled node
 seeded ``[seed, hop, node]``: the same store, seeds and fanouts give the
-same frontiers as the reference's store, bit for bit. The exchange that
-carries remote hops between hosts (the reference's ``FrontierExchange``)
-arrives with the multi-host slice; :class:`PartitionedStoreClient` takes
-any sampler callable, such as another shard's ``sample_in_neighbors`` in
-the same process.
+same frontiers as the reference's store, bit for bit.
+:class:`PartitionedStoreClient` takes any sampler callable per remote
+shard: another shard's ``sample_in_neighbors`` in the same process, or
+:class:`~repro_torch.distributed.multihost.FrontierExchange`'s sampler for
+a shard on another host.
 """
 from __future__ import annotations
 
@@ -246,12 +246,13 @@ class PartitionedStoreClient:
     """Ownership-routed sampling over a partitioned store.
 
     One per querying host: samples nodes the local shard owns directly and
-    sends each remote run to its owner's sampler (another in-process shard
-    here — anything matching :data:`SampleFn`). Because node ranges are contiguous and ascending
-    by rank, concatenating per-owner results in rank order restores the
-    dst-grouped order of the monolithic store, and the deterministic
-    per-(seed, hop, node) rng makes the merged result BIT-IDENTICAL to
-    sampling the whole graph locally.
+    sends each remote run to its owner's sampler (an in-process shard or a
+    :class:`~repro_torch.distributed.multihost.FrontierExchange` channel —
+    anything matching :data:`SampleFn`). Because node ranges are
+    contiguous and ascending by rank, concatenating per-owner results in
+    rank order restores the dst-grouped order of the monolithic store, and
+    the deterministic per-(seed, hop, node) rng makes the merged result
+    BIT-IDENTICAL to sampling the whole graph locally.
     """
 
     def __init__(self, local: GraphStore,

@@ -60,6 +60,16 @@ dispatch counts under the regime its slots ran (``routed_resident`` under
 ``accel``). ``slot_routed_<regime>`` (port only) counts dispatches per
 slot: one per single dispatch, one per slot per sharded dispatch — the
 kernel launches of the regime.
+
+:class:`MultihostGraphEngine` lifts the same structure one level: a flush
+first splits work by owning HOST (the distributed
+:class:`~repro_torch.distributed.directory.PlacementDirectory`), forwards
+remote-owned groups to their owner over the peer data plane, and runs the
+locally-owned share through the per-slot path above; ``serve_global``
+block-shards one graph over every host's slots. Validated with real
+processes on ``torch.distributed`` (gloo): two CPU processes in
+``tests/test_torch_multihost.py``, two processes of two slots each on one
+card in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -69,24 +79,34 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..core.plan_cache import DeviceLike, PartitionConfig, PartitionPlan
+from ..core.graph import CSRGraph, gcn_normalize
+from ..core.plan_cache import (
+    DeviceLike, PartitionConfig, PartitionPlan, build_partition_plan,
+    graph_content_hash,
+)
+from ..core.plan_repair import EdgeDelta, delta_chain_hash, repair_plan
+from ..distributed.directory import HostInfo, PlacementDirectory
+from ..distributed.multihost import (
+    MultihostContext, PeerClient, PeerServer, peer_ports,
+)
 from ..distributed.placement import FleetPlanCache, _settle
 from ..distributed.replication import ReplicaManager
 from ..distributed.shard_spmm import (
-    prepare_block_shards, prepare_feature_shards, spmm_block_sharded,
-    spmm_feature_sharded,
+    _mesh_spans_processes, commit_block_shards_global, prepare_block_shards,
+    prepare_feature_shards, spmm_block_sharded, spmm_feature_sharded,
 )
 from ..kernels.router import FleetDecision, route_fleet
 from ..kernels.spmm_batched import spmm_batched
-from ..launch.mesh import graph_mesh, resolve_slots
+from ..launch.mesh import graph_mesh, multihost_graph_mesh, resolve_slots
 from .graph_engine import GraphServeEngine
 from .scheduler import WorkItem
 
-__all__ = ["FleetGraphEngine"]
+__all__ = ["FleetGraphEngine", "MultihostGraphEngine"]
 
 # the regime a slot's share runs under each engine backend but ``auto``
 # (which takes the router's per-slot decision)
@@ -185,8 +205,8 @@ class FleetGraphEngine(GraphServeEngine):
                 and hasattr(self.cache, "add_replica")):
             self.replicas = ReplicaManager(
                 replicas_fn=self.cache.replica_devices,
-                add_fn=self.cache.add_replica,
-                drop_fn=self.cache.drop_replica,
+                add_fn=self._add_replica,
+                drop_fn=self._drop_replica,
                 device_load_fn=self._device_loads,
                 rate_per_replica=rate_per_replica,
                 max_replicas=min(max_replicas, self.n_devices),
@@ -196,6 +216,33 @@ class FleetGraphEngine(GraphServeEngine):
     def close(self) -> None:
         super().close()
         self._pool.shutdown(wait=True)
+
+    # -------------------------------------------------------------- replicas
+    def _add_replica(self, key, dev: int) -> bool:
+        """ReplicaManager promotion hook: stage a copy locally and, when a
+        placement directory is attached (the multihost engine), record the
+        new ``(host, slot)`` replica fleet-wide."""
+        if not self.cache.add_replica(key, dev):
+            return False
+        directory = getattr(self, "directory", None)
+        if directory is not None:
+            try:
+                directory.add_replica(
+                    key, getattr(self, "process_index", 0), dev)
+            except (KeyError, ValueError):
+                pass    # directory host table lags (mid-rejoin): local
+                #         replica still serves, directory catches up later
+        return True
+
+    def _drop_replica(self, key, dev: int) -> bool:
+        """ReplicaManager demotion hook (mirror of :meth:`_add_replica`)."""
+        if not self.cache.drop_replica(key, dev):
+            return False
+        directory = getattr(self, "directory", None)
+        if directory is not None:
+            directory.remove_replica(
+                key, getattr(self, "process_index", 0), dev)
+        return True
 
     def _device_loads(self) -> List[float]:
         with self._counters_lock:
@@ -538,22 +585,31 @@ class FleetGraphEngine(GraphServeEngine):
         for item, result in answers:
             item.complete(result)
 
-    def _shard_prepared(self, strategy: str, plan: PartitionPlan) -> Dict:
-        """Memoized per-(plan, strategy) sharded-dispatch preparation: each
-        slot's slab shard on its device and ``inv_perm`` on the first
-        slot's, complete before any slot's stream reads them."""
-        key = (plan.key, strategy)
+    def _shard_prepared(self, strategy: str, plan: PartitionPlan,
+                        slots: Optional[Sequence] = None) -> Dict:
+        """Memoized per-(plan, strategy, slot count) sharded-dispatch
+        preparation: each slot's slab shard on its device and ``inv_perm``
+        on the first slot's, complete before any slot's stream reads them.
+        ``slots`` defaults to this engine's; the multihost engine passes
+        the GLOBAL slots, whose count differs from the local one, and gets
+        this process's shares of them."""
+        slots = self.devices if slots is None else slots
+        key = (plan.key, strategy, len(slots))
         with self._prep_lock:
             ent = self._shard_prep.get(key)
             if ent is not None:
                 self._shard_prep.move_to_end(key)
                 return ent
         if strategy == "feature":
-            ent = {"args": prepare_feature_shards(plan.slabs, self.devices),
+            ent = {"args": prepare_feature_shards(plan.slabs, slots),
                    "live": None}
+        elif _mesh_spans_processes(slots):
+            args, live = commit_block_shards_global(
+                plan.slabs, plan.n_rows, slots,
+                getattr(self, "process_index", 0), self.devices)
+            ent = {"args": args, "live": live}
         else:
-            args, live = prepare_block_shards(plan.slabs, plan.n_rows,
-                                              self.devices)
+            args, live = prepare_block_shards(plan.slabs, plan.n_rows, slots)
             ent = {"args": args, "live": live}
         ent["inv_perm"] = plan.inv_perm.to(self.devices[0])
         for d in set(self.devices):
@@ -568,6 +624,13 @@ class FleetGraphEngine(GraphServeEngine):
         if self._t_first_launch is None:
             self._t_first_launch = t0
         self._t_last_done = max(self._t_last_done or 0.0, t0 + dt)
+
+    # the multihost subclass keeps per-graph flush groups intact; factoring
+    # the split point here keeps ONE grouping implementation
+    def _flush_items_locally(self, items: List[WorkItem]) -> None:
+        """Serve a subset of a flush (always READ items — mutations are
+        never forwarded or failed over) entirely on this host's slots."""
+        FleetGraphEngine._flush_reads(self, items)
 
     # ------------------------------------------------------------------ stats
     def _stats_locked(self, s: Dict[str, float]) -> Dict[str, float]:
@@ -621,4 +684,584 @@ class FleetGraphEngine(GraphServeEngine):
         else:
             s.update(fleet_promotions=0, fleet_demotions=0,
                      fleet_replication_steps=0)
+        return s
+
+
+def _host_array(x) -> np.ndarray:
+    """A request's features as a float32 numpy array for the wire (a CUDA
+    tensor is copied to the host; frames never carry a tensor)."""
+    return torch.as_tensor(x).detach().to("cpu", torch.float32).numpy()
+
+
+class MultihostGraphEngine(FleetGraphEngine):
+    """Cross-host fleet serving: one engine per process, one shared
+    placement directory, a TCP forwarding data plane between hosts.
+
+    The flush pipeline grows exactly one stage over the single-host fleet::
+
+        flush -> group by graph
+              -> split groups by OWNING HOST (placement directory)
+                   local groups  -> the inherited per-slot concurrent path
+                   remote groups -> fused request forwarded to the owner
+                                    host over its peer channel (numpy on
+                                    the wire); the owner dispatches it
+                                    INLINE on the connection thread (never
+                                    through its scheduler queue — two
+                                    hosts forwarding to each other through
+                                    single flush workers would deadlock),
+                                    on its slot's stream, and the answer
+                                    travels back, is moved to this
+                                    engine's device and resolves the
+                                    ingress futures
+
+    Ownership: :class:`~repro_torch.distributed.directory.PlacementDirectory`
+    maps each plan key to a ``(host, slot)`` pair; the owning host pins the
+    slot into its local :class:`FleetPlanCache` (:meth:`FleetPlanCache.pin`),
+    so what the fleet believes and where the slabs actually sit agree.
+    Registration is symmetric (every host registers every graph — the bytes
+    come from shared storage) but only the OWNER builds and stages the
+    plan: fleet plan capacity is the sum over hosts.
+
+    Failure handling: a dead peer channel fails over — the affected items
+    are served locally from a freshly-built plan, and after
+    ``evict_after_failures`` CONSECUTIVE transport failures the owner is
+    evicted from the directory (its keys re-place onto survivors; a
+    recovered host rejoins via :meth:`connect_peers`). Remote EXECUTION
+    errors do not fail over; they propagate to the submitting caller like
+    any local dispatch error.
+
+    ``serve_global`` is the explicitly-COLLECTIVE path for graphs too big
+    for any single host: every process must call it with identical
+    arguments; the plan's blocks round-robin over the global slots
+    (:func:`repro_torch.launch.mesh.multihost_graph_mesh`), each process
+    runs its own slots' shares through its regime's kernel, and the
+    partials are gathered over gloo and folded in global slot order (the
+    reference's cross-host ``psum``). The continuous-batching submit path
+    never triggers it implicitly.
+
+    Operational rule (the reference's): sequence phase changes over the
+    data plane (a peer-server op setting an Event, as the two-process
+    tests do), and only enter collective phases once forwarding traffic
+    has drained. A process waiting in the gather still answers peers on its
+    server threads, but the rule keeps both packages' tests meaning the
+    same thing.
+    """
+
+    def __init__(
+        self,
+        *,
+        context: Optional[MultihostContext] = None,
+        directory: Optional[PlacementDirectory] = None,
+        peer_addresses: Optional[Mapping[int, Tuple[str, int]]] = None,
+        serve_port: Optional[int] = None,
+        peer_timeout_s: float = 120.0,
+        evict_after_failures: int = 3,
+        **engine_kw,
+    ):
+        if context is None:
+            local = graph_mesh()        # every visible card; raises without
+            context = MultihostContext(  # CUDA
+                process_index=0, process_count=1, coordinator=None,
+                local_devices=local,
+                global_devices=[(0, i) for i in range(len(local))])
+        self.context = context
+        self.process_index = context.process_index
+        self.process_count = context.process_count
+        if directory is None:
+            # homogeneous-fleet default: every rank assumed to carry this
+            # rank's slot count (peer handshakes correct the table)
+            directory = PlacementDirectory([
+                HostInfo(p, context.n_local_devices, 0)
+                for p in range(context.process_count)])
+        self.directory = directory
+
+        super().__init__(devices=context.local_devices, **engine_kw)
+        # the inherited pool is sized for per-slot launches; forwards to
+        # remote owners block on the network, so give them their own slots
+        self._pool.shutdown(wait=True)
+        self._pool = ThreadPoolExecutor(
+            max_workers=self.n_devices + max(1, self.process_count - 1),
+            thread_name_prefix="fleet-dev")
+
+        ports = peer_ports()
+        if serve_port is None:
+            serve_port = ports.get(self.process_index, 0)
+        self.server = PeerServer(serve_port,
+                                 process_index=self.process_index,
+                                 epoch=context.epoch,
+                                 n_devices=context.n_local_devices)
+        self.server.register("serve", self._handle_peer_serve)
+        self.server.register("mutate", self._handle_peer_mutate)
+        if peer_addresses is None:
+            peer_addresses = {r: ("127.0.0.1", p) for r, p in ports.items()
+                              if r != self.process_index}
+        self.peers: Dict[int, PeerClient] = {
+            int(r): PeerClient(tuple(addr), process_index=self.process_index,
+                               epoch=context.epoch, timeout_s=peer_timeout_s)
+            for r, addr in peer_addresses.items()
+            if int(r) != self.process_index}
+
+        # multihost counters (under the inherited _counters_lock)
+        self.forwarded_requests = 0
+        self.host_forwarded = [0] * self.process_count
+        self.remote_served = 0        # peer groups answered on their behalf
+        self.forward_busy_s = 0.0
+        self.host_failovers = 0
+        self.global_dispatches = 0
+        # global dispatches by the regime this process's shares ran
+        self.global_regimes = dict.fromkeys(_REGIMES, 0)
+        self.last_global_timing: Dict[str, float] = {}
+        self.mutation_broadcasts = 0          # peer deliveries of a mutation
+        self.mutation_broadcast_failures = 0  # peers a broadcast missed
+        self.remote_mutations = 0             # mutations applied for a peer
+        # consecutive transport failures per peer: a single slow request
+        # (socket timeout on a busy owner) serves locally but keeps the
+        # placements — only a PERSISTENT failure evicts the host
+        self.evict_after_failures = evict_after_failures
+        self._peer_failures: Dict[int, int] = {}
+        # graph ids registered via register_subgraph: frontier subgraphs
+        # are sampled near the data, so they serve from THIS host and
+        # never enter the placement directory (guarded by _bind_lock)
+        self._local_only: set = set()
+
+    # ----------------------------------------------------------------- peers
+    def connect_peers(self) -> Dict[int, int]:
+        """Handshake every peer channel; the learned ``(rank, epoch,
+        n_devices)`` feed the directory (a bumped epoch invalidates the
+        restarted host's stale placements). Returns ``{rank: epoch}``.
+
+        Also the REJOIN path: calling it again after a peer was evicted
+        re-announces the recovered host to the directory — its ring arcs
+        come back and its failure counter resets. The rejoin is
+        forward-looking: keys re-placed onto survivors during the outage
+        stay there (their plans are already resident).
+        """
+        epochs: Dict[int, int] = {}
+        for _rank, client in sorted(self.peers.items()):
+            peer_rank, peer_epoch = client.handshake()
+            epochs[peer_rank] = peer_epoch
+            self.directory.update_host(HostInfo(
+                peer_rank, client.peer_devices or self.n_devices,
+                peer_epoch))
+            with self._counters_lock:
+                self._peer_failures[peer_rank] = 0
+        return epochs
+
+    def _handle_peer_serve(self, payload: Dict) -> np.ndarray:
+        """Data-plane handler: a peer forwarded a fused request group we
+        own. It executes INLINE on this connection thread (an adopted,
+        never-enqueued work item) — queueing it behind our single flush
+        worker would deadlock two hosts forwarding to each other. The slot
+        dispatch runs on the slot's stream and synchronizes it before it
+        answers, so the ``.cpu()`` below reads a finished answer. The
+        pinned-local marker keeps the item off the forwarding split even if
+        it ever re-enters a flush path."""
+        gid = payload["graph_id"]
+        x = torch.from_numpy(np.asarray(payload["x"], dtype=np.float32))
+        self._validate(gid, x)
+        item = self.scheduler.adopt((gid, x, "pinned-local"))
+        try:
+            self._flush_items_locally([item])
+        finally:
+            if not item.done:   # dispatch raised (or forgot the item):
+                item.fail(RuntimeError(   # never leave the peer hanging
+                    f"peer dispatch left {gid!r} unanswered"))
+        out = item.future.result(timeout=0).cpu().numpy()
+        with self._counters_lock:
+            self.remote_served += 1
+        return out
+
+    def close(self) -> None:
+        super().close()               # drain the scheduler (may still forward)
+        for client in self.peers.values():
+            client.close()
+        self.server.close()
+
+    # ------------------------------------------------------------------ admin
+    def register_graph(self, graph_id: str, g: CSRGraph,
+                       normalize: bool = False) -> Optional[PartitionPlan]:
+        """Register a graph fleet-wide (call on EVERY host with the same
+        content — registration is symmetric, plan residency is not).
+
+        Only the directory-designated owner builds and stages the plan (on
+        the directory's slot, pinned into the local cache); other hosts
+        record the binding and forward at serve time. Returns the plan on
+        the owner, None elsewhere.
+        """
+        if normalize:
+            g = gcn_normalize(g)
+        key = (graph_content_hash(g), self.config)
+        with self._bind_lock:
+            prev_key = self._keys.get(graph_id)
+            prev_ver = self._versions.get(graph_id)
+            if prev_key == key and prev_ver is not None:
+                version = prev_ver      # idempotent re-register
+            elif prev_ver is not None:
+                version = prev_ver + 1  # content replacement: chain advances
+            else:
+                version = 0
+            self._graphs[graph_id] = g
+            self._keys[graph_id] = key
+            self._versions[graph_id] = version
+        # seed the version chain fleet-wide: deterministic on every host,
+        # so the first mutate's record_version(v+1) invalidates this key
+        # everywhere without coordination
+        self.directory.record_version(graph_id, key, version)
+        placement = self.directory.place(key)
+        if placement.host != self.process_index:
+            return None
+        dev = self.cache.pin(key, placement.device)
+        return self.cache.get_by_key(
+            key, lambda: build_partition_plan(g, self.config,
+                                              graph_hash=key[0],
+                                              device=self.devices[dev]))
+
+    def register_subgraph(self, g: CSRGraph, prefix: str = "sub",
+                          normalize: bool = False) -> str:
+        """Register a frontier subgraph LOCALLY — sampling happens near
+        the data, so the induced subgraph must serve from this host, not
+        wherever the directory's consistent hash would place its key.
+        Uses the single-host fleet path (local slot placement via
+        ``FleetPlanCache``) and marks the id so ``_flush_reads`` never
+        consults the directory or forwards it to a peer.
+        """
+        if normalize:
+            g = gcn_normalize(g)
+        graph_id = f"{prefix}:{graph_content_hash(g)[:16]}"
+        with self._bind_lock:
+            self._local_only.add(graph_id)
+        FleetGraphEngine.register_graph(self, graph_id, g)
+        return graph_id
+
+    def unregister_graph(self, graph_id: str) -> bool:
+        with self._bind_lock:
+            self._local_only.discard(graph_id)
+        return super().unregister_graph(graph_id)
+
+    # ------------------------------------------------------------------ flush
+    def _flush_reads(self, items: List[WorkItem]) -> None:
+        """Split the read share of a flush by owning host FIRST; the local
+        share then runs the inherited per-slot concurrent path while
+        remote shares forward concurrently from the pool (one task per
+        owner host). Mutations never reach here — the base ``_flush``
+        wrapper splits them out and routes them via ``_apply_mutation``."""
+        if self.process_count <= 1 or not self.peers:
+            return super()._flush_reads(items)
+        order, groups = self._group_by_graph(items)
+        local: List[WorkItem] = []
+        by_host: Dict[int, List[Tuple[str, List[WorkItem]]]] = {}
+        with self._bind_lock:   # snapshot: gid -> current chained key
+            keys = dict(self._keys)
+            local_only = set(self._local_only)
+        for gid in order:
+            grp = groups[gid]
+            if any(len(it.payload) > 2 for it in grp):
+                local.extend(grp)     # pinned by a peer forward: never bounce
+                continue
+            if gid in local_only:
+                local.extend(grp)     # frontier subgraph: sampled near the
+                continue              # data, never directory-placed
+            # consult the full replica set: a plan replicated ONTO this
+            # host serves locally even when another host owns the primary
+            reps = self.directory.replicas(keys[gid])
+            owner = reps[0]
+            if (any(r.host == self.process_index for r in reps)
+                    or owner.host not in self.peers):
+                local.extend(grp)
+            else:
+                by_host.setdefault(owner.host, []).append((gid, grp))
+
+        futs = [self._pool.submit(self._forward_host, host, host_groups)
+                for host, host_groups in sorted(by_host.items())]
+        first_exc: Optional[BaseException] = None
+        if local:
+            try:
+                super()._flush_reads(local)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                first_exc = e
+        for f in futs:
+            try:
+                f.result()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                if first_exc is None:
+                    first_exc = e
+        if first_exc is not None:
+            raise first_exc
+
+    def _forward_host(self, host: int,
+                      host_groups: List[Tuple[str, List[WorkItem]]]) -> None:
+        """Forward one owner host's graph groups over its peer channel.
+
+        Same fusion as a local dispatch: one request per graph group, the
+        feature axis concatenated (as numpy), the answer sliced back per
+        item on this engine's device. A TRANSPORT failure serves the
+        unanswered items locally (failover) and, only after
+        ``evict_after_failures`` CONSECUTIVE failures, evicts the host from
+        the directory (survivors inherit its keys — ``connect_peers``
+        re-admits a recovered host). A remote execution error propagates
+        as-is.
+        """
+        t0 = time.perf_counter()
+        client = self.peers[host]
+        try:
+            for gid, grp in host_groups:
+                feats = [_host_array(it.payload[1]) for it in grp]
+                widths = [int(f.shape[1]) for f in feats]
+                fused = (feats[0] if len(feats) == 1
+                         else np.concatenate(feats, axis=1))
+                answer = client.request("serve", {"graph_id": gid,
+                                                  "x": fused})
+                out = torch.from_numpy(np.asarray(answer)).to(self.device)
+                with self._counters_lock:
+                    self._peer_failures[host] = 0
+                answers, wait_s = self._slice_answers(
+                    grp, widths, out, time.perf_counter())
+                n_rows = int(out.shape[0])
+                with self._counters_lock:
+                    self.forwarded_requests += len(grp)
+                    self.host_forwarded[host] += len(grp)
+                    self.requests_served += len(grp)
+                    self.rows_served += n_rows * len(grp)
+                    self.values_served += n_rows * sum(widths)
+                    self.total_request_latency_s += wait_s
+                for item, result in answers:
+                    item.complete(result)
+        except ConnectionError:
+            # serve the stragglers here either way; only a PERSISTENT
+            # failure drops the host from the ring (one slow answer must
+            # not permanently split the fleet — the placements stay, so
+            # the next flush retries the forward)
+            with self._counters_lock:
+                self.host_failovers += 1
+                n_fail = self._peer_failures.get(host, 0) + 1
+                self._peer_failures[host] = n_fail
+            if n_fail >= self.evict_after_failures:
+                try:
+                    self.directory.evict_host(host)
+                except ValueError:
+                    pass               # already the last host standing
+            stragglers = [it for _, grp in host_groups for it in grp
+                          if not it.done]
+            if stragglers:
+                self._flush_items_locally(stragglers)
+        finally:
+            dt = time.perf_counter() - t0
+            with self._counters_lock:
+                self.forward_busy_s += dt
+
+    # --------------------------------------------------------------- mutation
+    def _apply_mutation(self, gid: str, grp: List[WorkItem]) -> None:
+        """Fleet-wide mutation: apply + publish locally, then broadcast the
+        SAME delta sequence to every peer over the data plane.
+
+        Every host runs the identical deterministic transition
+        (:meth:`_apply_deltas_local`), so the fleet converges without a
+        coordinator: same deltas -> same new graph -> same chained key ->
+        same directory record. Writer discipline is SINGLE WRITER PER GRAPH
+        (any host may be that writer): two hosts mutating one graph
+        concurrently race their broadcasts and the version-fork guard on
+        the receiving side fails the later one rather than silently
+        diverging. A peer the broadcast cannot reach keeps serving its old
+        binding until it rejoins.
+        """
+        with self._bind_lock:
+            local_only = gid in self._local_only
+        if local_only:
+            # frontier subgraph: repair through the single-host path — no
+            # broadcast, no directory transition (the id was never placed)
+            return GraphServeEngine._apply_mutation(self, gid, grp)
+        deltas: List[EdgeDelta] = [it.payload[1] for it in grp]
+        info = self._apply_deltas_local(gid, deltas)
+        if self.process_count > 1 and self.peers:
+            payload = {"graph_id": gid, "deltas": deltas,
+                       "base_version": info["version"] - 1}
+            for rank, client in sorted(self.peers.items()):
+                try:
+                    client.request("mutate", payload)
+                    with self._counters_lock:
+                        self.mutation_broadcasts += 1
+                        self._peer_failures[rank] = 0
+                except ConnectionError:
+                    with self._counters_lock:
+                        self.mutation_broadcast_failures += 1
+        for it in grp:
+            it.complete(dict(info))
+
+    def _handle_peer_mutate(self, payload: Dict) -> Dict:
+        """Data-plane handler: replay a peer's mutation on this host.
+
+        Runs inline on the connection thread (like ``serve``); a repaired
+        plan is published from here, and the fleet cache synchronizes this
+        thread's stream before a slot can read it. The version fork guard
+        raises back to the writer if this host's chain is not at the
+        broadcast's base version.
+        """
+        gid = payload["graph_id"]
+        with self._bind_lock:
+            if gid not in self._graphs:
+                raise KeyError(
+                    f"graph {gid!r} not registered on host "
+                    f"{self.process_index}")
+        info = self._apply_deltas_local(
+            gid, payload["deltas"],
+            expect_base=payload.get("base_version"))
+        with self._counters_lock:
+            self.remote_mutations += 1
+        return {"graph_id": gid, "version": info["version"]}
+
+    def _apply_deltas_local(self, gid: str, deltas: Sequence[EdgeDelta],
+                            expect_base: Optional[int] = None) -> Dict:
+        """One host's share of a fleet mutation (deterministic transition).
+
+        Applies the deltas SEQUENTIALLY, advances the version chain in the
+        directory (sticky owner slot via :meth:`PlacementDirectory.place_at`),
+        and — only on the owner host — repairs and publishes the plan; the
+        other hosts re-bind and retire their stale copies. With
+        ``expect_base`` set (a replayed broadcast), a chain not at that
+        version raises instead of forking.
+        """
+        with self._mutate_lock:
+            with self._bind_lock:
+                g_old = self._graphs[gid]
+                old_key = self._keys[gid]
+                cur_ver = self._versions[gid]
+            if expect_base is not None and cur_ver != expect_base:
+                raise RuntimeError(
+                    f"mutation version fork on {gid!r}: host "
+                    f"{self.process_index} is at v{cur_ver}, writer "
+                    f"published against v{expect_base} — one writer per "
+                    f"graph at a time")
+            g_new = g_old
+            touched: List[np.ndarray] = []
+            n_edges = 0
+            gh = old_key[0]
+            for d in deltas:
+                g_new = d.apply(g_new)
+                touched.append(d.touched_rows())
+                n_edges += d.size
+                gh = delta_chain_hash(gh, d)
+            # O(delta) chained key: every host chains the same deltas onto
+            # the same parent hash, so the fleet converges on one key
+            # without re-hashing the whole graph
+            new_key = (gh, self.config)
+            version = cur_ver + 1
+            # deterministic directory transition: resolve the CURRENT
+            # owner, advance the chain (drops the old key fleet-wide),
+            # re-pin the new key to the same slot
+            owner = self.directory.place(old_key)
+            self.directory.record_version(gid, new_key, version)
+            self.directory.place_at(new_key, owner.host, owner.device)
+            repaired, reason, dirty = False, "non-owner rebind", 0
+            if owner.host == self.process_index:
+                plan_old = self.cache.lookup(old_key)
+                if plan_old is not None:
+                    pv = repair_plan(
+                        plan_old, g_old, g_new,
+                        (np.unique(np.concatenate(touched)) if touched
+                         else np.empty(0, np.int64)),
+                        churn_threshold=self.repair_churn_threshold,
+                        graph_hash=gh)
+                    plan_new = pv.plan
+                    repaired, reason, dirty = (pv.repaired, pv.reason,
+                                               pv.dirty_rows)
+                else:       # owner copy LRU-evicted: nothing to repair from
+                    plan_new = build_partition_plan(
+                        g_new, self.config, graph_hash=new_key[0],
+                        device=self.devices[owner.device])
+                    reason = "owner plan not resident; full build"
+                plan_new.version = version
+                self.cache.pin(new_key, owner.device)
+                self.cache.publish(plan_new, retire_key=old_key)
+            else:
+                self.cache.retire(old_key)
+            with self._bind_lock:
+                self._graphs[gid] = g_new
+                self._keys[gid] = new_key
+                self._versions[gid] = version
+            with self._counters_lock:
+                self.mutations_applied += len(deltas)
+                self.mutation_edges += n_edges
+                if owner.host == self.process_index:
+                    if repaired:
+                        self.plan_repairs += 1
+                    else:
+                        self.plan_rebuilds += 1
+        return {"graph_id": gid, "version": version, "repaired": repaired,
+                "reason": reason, "dirty_rows": dirty}
+
+    # ----------------------------------------------------------------- global
+    def serve_global(self, graph_id: str, x) -> torch.Tensor:
+        """COLLECTIVE whole-fleet dispatch of one graph (SPMD contract:
+        every process calls with identical arguments, in the same order
+        relative to its other serve_global calls).
+
+        Routes over the GLOBAL slot count: when the dispatch block-shards
+        (giant narrow graph), the blocks round-robin over every host's
+        slots, each process runs its own shares through its regime's
+        kernel (``_slot_regime``), and the partials are gathered over gloo
+        and folded in global slot order — fleet capacity for one graph
+        becomes the sum of every host's memory. A dispatch that routes
+        ``single`` falls back to the local serving path on every host
+        (identical answers, no collective). The answer lies on this
+        engine's first slot; ``last_global_timing`` holds the dispatch's
+        shares, gather and fold ms beside its wall ms.
+        """
+        plan = self.plan_for(graph_id)
+        gslots = multihost_graph_mesh(self.context)
+        n_global = len(gslots)
+        fd = route_fleet(
+            plan.n_cols, int(x.shape[1]), int(plan.slabs["C"]),
+            int(plan.slabs["R"]), plan.num_blocks, n_global,
+            min_blocks_per_device=self.min_blocks_per_device,
+            n_hosts=self.process_count)
+        if fd.strategy != "block" or self.process_count <= 1:
+            return self.serve_one(graph_id, x)
+        regime = self._slot_regime(fd)
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        with self._on_slot(0):
+            xd = torch.as_tensor(x, dtype=torch.float32,
+                                 device=self.devices[0])
+            # this process's shares are staged once per plan and reused
+            prep = self._shard_prepared("block", plan, gslots)
+            out, live = spmm_block_sharded(
+                plan.slabs, xd, plan.n_rows, gslots,
+                prepared=(prep["args"], prep["live"]), regime=regime,
+                streams=self._streams, local_devices=self.devices,
+                timings=timings)
+            out = out[prep["inv_perm"]]
+            self._hand_over(out)
+        dt = time.perf_counter() - t0
+        with self._counters_lock:
+            self.global_dispatches += 1
+            self.global_regimes[regime] += 1
+            self.sharded_dispatches["block"] += 1
+            self.sharded_busy_s += dt
+            self.last_fleet_decision = fd
+            self.last_block_counts = [int(c) for c in live]
+            self.last_global_timing = dict(timings, wall_ms=dt * 1e3)
+            self._note_window_locked(t0, dt)
+        return out
+
+    # ------------------------------------------------------------------ stats
+    def _stats_locked(self, s: Dict[str, float]) -> Dict[str, float]:
+        s = super()._stats_locked(s)
+        # a global dispatch launches one kernel per local slot here
+        for k, n in self.global_regimes.items():
+            s[f"slot_routed_{k}"] += self.n_devices * n
+        s.update(
+            fleet_process_index=self.process_index,
+            fleet_hosts=self.process_count,
+            fleet_forwarded=self.forwarded_requests,
+            fleet_host_forwarded=list(self.host_forwarded),
+            fleet_remote_served=self.remote_served,
+            fleet_forward_busy_s=self.forward_busy_s,
+            fleet_host_failovers=self.host_failovers,
+            fleet_global_dispatches=self.global_dispatches,
+            fleet_mutation_broadcasts=self.mutation_broadcasts,
+            fleet_mutation_broadcast_failures=self.mutation_broadcast_failures,
+            fleet_remote_mutations=self.remote_mutations,
+        )
+        for k, v in self.directory.stats().items():
+            s[f"fleet_dir_{k}"] = v
         return s

@@ -746,9 +746,13 @@ class GraphServeEngine:
         """Per-dispatch tuner hook (runs AFTER the live futures resolved):
         feeds the rate tracker, asks the tuner whether any graph in this
         batch is due a shadow measurement, and hands shadows to the single
-        worker thread."""
+        worker thread. Multihost engines skip shadowing — promotion would
+        re-key the plan under the placement directory's feet; only
+        single-host engines tune."""
         for gid, grp, _ in batch:
             self.tuner.observe(gid, len(grp))
+        if getattr(self, "directory", None) is not None:
+            return      # multihost: directory-owned keys don't tune yet
         for (gid, _grp, plan), x in zip(batch, xs):
             cand = self.tuner.next_shadow(gid, plan.config)
             if cand is None:

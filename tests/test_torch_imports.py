@@ -50,7 +50,8 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "configs.mamba2_780m", "tuning.search", "tuning.tuner",
                 "sampling.store", "sampling.sampler", "sampling.service",
                 "distributed.replication", "distributed.placement",
-                "distributed.shard_spmm", "launch.mesh", "serve.fleet"):
+                "distributed.shard_spmm", "distributed.directory",
+                "distributed.multihost", "launch.mesh", "serve.fleet"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path

@@ -42,7 +42,16 @@ integer graphs, one launch per slot), and a ``FleetGraphEngine`` over
 four slots of one card (single, feature- and block-sharded dispatches and
 a ``mutate()``, exact, with K1's launches equal to the per-slot routed
 count).
+
+Slice G runs ``serve_global`` in two processes of two slots each on the one
+card (``run_fleet``, gloo): the global shares through K1 under ``accel``
+and K3 under ``auto``, the answer equal bit for bit to the single-process
+``spmm_block_sharded`` over four slots of the card and to the plain
+version, each worker's launches equal to its per-slot routed counts.
 """
+import json
+import os
+import textwrap
 import time
 
 import numpy as np
@@ -823,3 +832,80 @@ def test_fleet_engine_on_four_slots_of_one_card(cuda):
         assert fleet.plan_for("g1").version == plan.version + 1
     finally:
         fleet.close()
+
+
+# ---------------------------------------------------------------- slice G
+_MH_WORKER = textwrap.dedent("""
+    import json, os, sys
+    sys.path.insert(0, "src")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.multihost import initialize_multihost
+    ctx = initialize_multihost(timeout_s=60)
+    from repro_torch.core.graph import CSRGraph
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.distributed.shard_spmm import spmm_block_sharded
+    from repro_torch.kernels.spmm_accel import (
+        spmm_block_slabs, spmm_block_slabs_plain, spmm_block_slabs_windowed)
+    from repro_torch.kernels.spmm_hbm import spmm_block_slabs_hbm
+    from repro_torch.serve import MultihostGraphEngine
+
+    n, backend = int(os.environ["MH_NODES"]), os.environ["MH_BACKEND"]
+    g0 = make_power_law_graph(n, 8 * n, seed=5)
+    vals = np.random.default_rng(5).integers(1, 4, g0.nnz)
+    g = CSRGraph(g0.rowptr, g0.colidx, vals.astype(np.float32), g0.n_cols)
+    engine = MultihostGraphEngine(context=ctx, backend=backend)
+    engine.register_graph("g", g)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        -4, 5, (g.n_cols, 64)).astype(np.float32)).cuda()
+    kernels = {"resident": spmm_block_slabs,
+               "windowed": spmm_block_slabs_windowed,
+               "hbm": spmm_block_slabs_hbm}
+    for k in kernels.values():
+        k.launches = 0
+    y = engine.serve_global("g", x)
+    st = engine.stats()
+    launched = {r: k.launches for r, k in kernels.items()}
+    fd = engine.last_fleet_decision
+    regime = "resident" if backend == "accel" else fd.per_device.backend
+    plan = engine.plan_for("g")
+    want, _ = spmm_block_sharded(plan.slabs, x, plan.n_rows,
+                                 [torch.device("cuda", 0)] * 4,
+                                 regime=regime)
+    plain = spmm_block_slabs_plain(
+        *(plan.slabs[k].cpu() for k in ("colidx", "values", "rowloc",
+                                        "out_row")), x.cpu(), plan.n_rows)
+    print(json.dumps({
+        "rank": ctx.process_index, "strategy": fd.strategy,
+        "regime": regime, "launched": launched,
+        "routed": {r: st["slot_routed_" + r] for r in kernels},
+        "blocks": st["fleet_block_counts"],
+        "equal": bool(torch.equal(y, want[plan.inv_perm])),
+        "plain": bool(torch.equal(y.cpu(), plain[plan.inv_perm.cpu()])),
+    }))
+    engine.close()
+    dist.destroy_process_group()
+""")
+
+
+@pytest.mark.parametrize("backend,n_nodes,regime",
+                         [("accel", 6000, "resident"),
+                          ("auto", 20000, "hbm")])
+def test_serve_global_two_processes_on_one_card(cuda, backend, n_nodes,
+                                                regime):
+    from repro_torch.distributed.multihost import run_fleet
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    records = run_fleet(_MH_WORKER, num_processes=2, n_local_slots=2,
+                        device="cuda", timeout_s=240, cwd=root,
+                        extra_env={"MH_NODES": str(n_nodes),
+                                   "MH_BACKEND": backend})
+    for r in records:
+        assert r["strategy"] == "block" and r["regime"] == regime, r
+        assert len(r["blocks"]) == 4
+        assert max(r["blocks"]) - min(r["blocks"]) <= 1
+        assert r["equal"] and r["plain"], r
+        assert r["launched"] == r["routed"], r
+        assert r["launched"][regime] == 2, r        # one per local slot
+    assert json.dumps(records[0]["blocks"]) == \
+        json.dumps(records[1]["blocks"])

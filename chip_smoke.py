@@ -216,6 +216,31 @@ Phases (any failure exits non-zero and prints no result line):
    worker's K1/K2/K3 launches (less the reference answers') equal its
    per-slot routed counts; their sums are the ``"multihost"`` entry of
    ``launches_by_path``.
+17. slice H's lock-order witness on the served path (after phase 16):
+   one F=256 layer of the integer Reddit copy is timed here, unwitnessed;
+   then a fresh process (``witness_child``) installs
+   ``repro_torch.statics.witness`` before any ``repro_torch`` import, so
+   module-level locks are wrapped too, and runs (a) an ``accel``
+   ``GraphServeEngine`` with a ``PlanTuner`` (every fourth dispatch
+   shadowed) over the integer Reddit and Arxiv copies: 4 threads x 32
+   closed-loop requests at F=256, one ``mutate()`` on Arxiv published
+   half way, every answer exact against one published version's oracle,
+   at least one shadow; the same layer timed under the witness; (c) one
+   ``SamplingService`` batch of 64 seeds (fanouts [10, 10]) over Arxiv's
+   store within its bound; (b) a ``FleetGraphEngine`` over
+   ``fleet_slots()`` with replication on, 3 graphs of phase 15's zipf mix
+   served twice, exact, at least one promotion; then (d) two
+   ``run_fleet`` workers (``witness_fleet_worker``, the witness installed
+   first) each holding the integer ``tiny`` graph in a
+   ``MultihostGraphEngine``: one forwarded read, one broadcast delta, a
+   read of the new version, all exact. Each process must report no
+   cycle and wrapped locks in each module its workload creates locks in
+   (``WITNESS_CHILD_MODULES``, ``WITNESS_WORKER_MODULES``); the locks per
+   module, acquisitions, order edges, both layer times beside the card
+   line, and the phase's seconds are printed. The child's K1 launches
+   equal its engines' dispatches plus 5 per shadow plus the fleet's
+   per-slot routed count; each worker's equal its per-slot routed counts;
+   their sum is the ``"witness"`` entry of ``launches_by_path``.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -3005,16 +3030,16 @@ def fleet_serve_integers(torch, fleet, ints, dev, nnz_chunk, label):
         f"{list(FLEET_INT_WIDTHS)}")
 
 
-def fleet_zipf(torch, dev, slots, nnz_chunk):
-    """Phase 15(c): the reference's zipf script at 20k-50k nodes and F=256
-    (integer graphs), replication on and off. Returns both engines' stats,
-    the hottest graph and its features."""
+def zipf_mix(torch, dev, nodes, requests):
+    """The reference's zipf mix: an integer power-law graph of 8 edges per
+    node for each entry of ``nodes`` (values 1-2), integer features of
+    width ZIPF_F, and a schedule of ``requests`` graph ids drawn with
+    probability ~ rank**-1.6."""
     import numpy as np
     from repro_torch.data.graphs import make_power_law_graph
-    from repro_torch.serve.fleet import FleetGraphEngine
     graphs = {f"z{i}": integer_copy(make_power_law_graph(n, 8 * n,
                                                          seed=50 + i), 60 + i)
-              for i, n in enumerate(ZIPF_NODES)}
+              for i, n in enumerate(nodes)}
     gen = torch.Generator(device=dev).manual_seed(23)
     feats = {k: int_features(torch, g.n_cols, ZIPF_F, gen, dev)
              for k, g in graphs.items()}
@@ -3022,42 +3047,54 @@ def fleet_zipf(torch, dev, slots, nnz_chunk):
     rng = np.random.default_rng(3)
     p = np.arange(1, len(names) + 1, dtype=np.float64) ** -1.6
     p /= p.sum()
-    schedule = [names[i] for i in rng.choice(len(names), size=ZIPF_REQUESTS,
-                                             p=p)]
+    schedule = [names[i] for i in rng.choice(len(names), size=requests, p=p)]
+    return graphs, feats, schedule
+
+
+def zipf_pass(e, schedule, feats):
+    """Submit ``schedule`` to ``e`` from 4 threads (thread t takes every
+    4th request from the t-th) and return (graph id, answer) pairs, thread
+    by thread."""
+    futs = [[] for _ in range(4)]
+
+    def sub(t):
+        futs[t] = [e.submit(gid, feats[gid]) for gid in schedule[t::4]]
+    ths = [threading.Thread(target=sub, args=(t,)) for t in range(4)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a zipf submitter did not finish")
+    return [(gid, f.result(timeout=600))
+            for t, fs in enumerate(futs)
+            for gid, f in zip(schedule[t::4], fs)]
+
+
+ZIPF_ENGINE = dict(max_batch_requests=32, max_wait_ms=3.0,
+                   max_graphs_per_batch=1, backend="accel")
+ZIPF_REPLICATION = dict(rate_per_replica=1.0, max_replicas=8,
+                        replica_halflife_s=4.0, replication_interval_s=0.005,
+                        split_min_requests=1)
+
+
+def fleet_zipf(torch, dev, slots, nnz_chunk):
+    """Phase 15(c): the reference's zipf script at 20k-50k nodes and F=256
+    (integer graphs), replication on and off. Returns both engines' stats,
+    the hottest graph and its features."""
+    from repro_torch.serve.fleet import FleetGraphEngine
+    graphs, feats, schedule = zipf_mix(torch, dev, ZIPF_NODES, ZIPF_REQUESTS)
     runs = {}
     engines = {}
-    for mode, kw in (("on", dict(rate_per_replica=1.0, max_replicas=8,
-                                 replica_halflife_s=4.0,
-                                 replication_interval_s=0.005,
-                                 split_min_requests=1)),
+    for mode, kw in (("on", ZIPF_REPLICATION),
                      ("off", dict(replicate_hot=False))):
-        e = FleetGraphEngine(devices=slots, max_batch_requests=32,
-                             max_wait_ms=3.0, max_graphs_per_batch=1,
-                             backend="accel", **kw)
+        e = FleetGraphEngine(devices=slots, **ZIPF_ENGINE, **kw)
         for k, g in graphs.items():
             e.register_graph(k, g)
-
-        def pass_once():
-            futs = [[] for _ in range(4)]
-
-            def sub(t):
-                futs[t] = [e.submit(gid, feats[gid])
-                           for gid in schedule[t::4]]
-            ths = [threading.Thread(target=sub, args=(t,)) for t in range(4)]
-            for th in ths:
-                th.start()
-            for th in ths:
-                th.join(timeout=600)
-                if th.is_alive():
-                    raise AssertionError("a zipf submitter did not finish")
-            return [(gid, f.result(timeout=600))
-                    for t, fs in enumerate(futs)
-                    for gid, f in zip(schedule[t::4], fs)]
-
-        pass_once()                         # warm: learn rates, replicate
+        zipf_pass(e, schedule, feats)       # warm: learn rates, replicate
         e.reset_stats()
         t0 = time.perf_counter()
-        outs = pass_once()
+        outs = zipf_pass(e, schedule, feats)
         wall = time.perf_counter() - t0
         runs[mode] = (outs, e.stats(), wall)
         engines[mode] = e
@@ -3399,6 +3436,34 @@ def aggregate_oracle(torch, f, x, nnz_chunk, C):
     return h, m, c
 
 
+class PeerGates:
+    """Named barriers between the two processes of a fleet over the peer
+    data plane: ``signal(name)`` tells the peer this rank reached ``name``,
+    ``wait(name)`` waits (MH_GATE_S at most) until the peer has."""
+
+    def __init__(self, engine, tag, names):
+        self.tag = tag
+        self.events = {name: threading.Event() for name in names}
+        for name, ev in self.events.items():
+            engine.server.register(f"gate-{name}", lambda _p, ev=ev: ev.set())
+        self.peer = None
+
+    def connect(self, peer):
+        """Bind the peer's client (once the fleet's channels are up)."""
+        self.peer = peer
+
+    def signal(self, name):
+        self.peer.request(f"gate-{name}", None)
+
+    def wait(self, name):
+        if not self.events[name].wait(MH_GATE_S):
+            raise AssertionError(f"{self.tag} peer never reached {name!r}")
+
+    def gate(self, name):
+        self.signal(name)
+        self.wait(name)
+
+
 def multihost_worker():
     """Phase 16, one worker process (started by ``phase_multihost`` through
     ``run_fleet``): a MultihostGraphEngine over this process's slots,
@@ -3444,16 +3509,8 @@ def multihost_worker():
     rec["graphs_s"] = time.perf_counter() - t0
 
     engine = MultihostGraphEngine(context=ctx, backend="auto")
-    events = {}
-
-    def on(name):
-        events[name] = threading.Event()
-        engine.server.register(f"gate-{name}",
-                               lambda _p, ev=events[name]: ev.set())
-
-    for name in ("ready", "served", "timed-0", "timed-1", "global",
-                 "mutated", "store", "done"):
-        on(name)
+    gates = PeerGates(engine, tag, ("ready", "served", "timed-0", "timed-1",
+                                    "global", "mutated", "store", "done"))
     t0 = time.perf_counter()
     owned = [name for name, g in every.items()
              if engine.register_graph(name, g) is not None]
@@ -3461,17 +3518,7 @@ def multihost_worker():
     rec["register_s"] = time.perf_counter() - t0
     engine.connect_peers()
     peer = engine.peers[peer_rank]
-
-    def signal(name):
-        peer.request(f"gate-{name}", None)
-
-    def wait(name):
-        if not events[name].wait(MH_GATE_S):
-            raise AssertionError(f"{tag} peer never reached {name!r}")
-
-    def gate(name):
-        signal(name)
-        wait(name)
+    gates.connect(peer)
 
     # reference answers on one card, before any request is forwarded
     nnz_chunk = 1 << 17
@@ -3491,7 +3538,7 @@ def multihost_worker():
     want = ledger.aside(lambda: {
         r.graph_id: r.out for r in single.serve(
             [GraphRequest(name, x) for name, x in feats.items()])})
-    gate("ready")
+    gates.gate("ready")
 
     # (5) both ranks serve every graph concurrently, each forwarding what
     # the other owns while it answers the other's forwards
@@ -3514,7 +3561,7 @@ def multihost_worker():
                                    MH_SLOTS + 4)
             csr_check(torch, g, x, want[name], C, nnz_chunk, 4)
     rec["max_err"] = errs
-    gate("served")
+    gates.gate("served")
     st = engine.stats()
     if st["fleet_forwarded"] < 1 or st["fleet_remote_served"] < 1:
         raise AssertionError(f"{tag} forwarded {st['fleet_forwarded']}, "
@@ -3536,11 +3583,11 @@ def multihost_worker():
         return sorted(times)[MH_REPS // 2]
 
     if rank == 1:
-        wait("timed-0")
+        gates.wait("timed-0")
     rec["request_ms"] = {name: timed(name) for name in every}
-    signal(f"timed-{rank}")
+    gates.signal(f"timed-{rank}")
     if rank == 0:
-        wait("timed-1")
+        gates.wait("timed-1")
     rec["wire_bytes"] = {}
     for name in every:
         x_np = feats[name].cpu().numpy()
@@ -3551,7 +3598,7 @@ def multihost_worker():
         rec["wire_bytes"][name] = len(ask) + len(answer) + 16
 
     # (7) the collective dispatch over the 4 global slots, K3 shares
-    gate("global")
+    gates.gate("global")
     x_g = feats[MH_GLOBAL]
     x_gi = feats[f"{MH_GLOBAL}#int"]
     walls = []
@@ -3601,7 +3648,7 @@ def multihost_worker():
         info = engine.mutate(mut, delta).result(timeout=MH_GATE_S)
         rec["mutate_info"] = {k: info[k] for k in ("version", "repaired",
                                                    "reason")}
-    gate("mutated")
+    gates.gate("mutated")
     x_m = feats[mut]
     y_m = engine.serve_one(mut, x_m)
     if engine.graph_version(mut) != 1 or not torch.equal(
@@ -3623,7 +3670,7 @@ def multihost_worker():
     bounds = [s.node_range[0] for s in shards] + [full.n_nodes]
     FrontierExchange.serve(engine.server, shards[rank])
     rec["store_s"] = time.perf_counter() - t0
-    gate("store")
+    gates.gate("store")
     exchange = FrontierExchange({peer_rank: peer})
     client = PartitionedStoreClient(shards[rank], bounds,
                                     exchange.remote_map(), rank)
@@ -3653,7 +3700,7 @@ def multihost_worker():
         "requests": exchange.requests, "failovers": exchange.failovers,
         "sample_ms": sample_ms, "max_err": s_err}
 
-    gate("done")
+    gates.gate("done")
     st = engine.stats()
     rec["stats"] = {k: st[k] for k in (
         "fleet_forwarded", "fleet_remote_served", "fleet_host_failovers",
@@ -3676,11 +3723,11 @@ def multihost_worker():
     print(json.dumps(rec), flush=True)
 
 
-def mh_worker_src(prelude=""):
-    """The ``python -c`` body of a phase 16 worker: this script imported
-    from its own directory, ``prelude`` run first."""
+def mh_worker_src(prelude="", entry="multihost_worker"):
+    """The ``python -c`` body of a worker process: this script imported
+    from its own directory, ``prelude`` run first, then ``entry()``."""
     return (f"import sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n{prelude}\n"
-            f"import chip_smoke\nchip_smoke.multihost_worker()\n")
+            f"import chip_smoke\nchip_smoke.{entry}()\n")
 
 
 def phase_multihost(torch, card_line, device="cuda", prelude=""):
@@ -3765,6 +3812,382 @@ def phase_multihost(torch, card_line, device="cuda", prelude=""):
     return launches
 
 
+WITNESS_F = 256
+WITNESS_THREADS = 4            # (a): submitter threads
+WITNESS_REQUESTS = 32          # (a): requests per submitter
+WITNESS_FEATURES = 2           # (a): feature matrices per graph
+WITNESS_ZIPF_NODES = ZIPF_NODES[:3]
+WITNESS_ZIPF_REQUESTS = 48
+WITNESS_SEEDS = 64             # (c)
+WITNESS_FANOUTS = [10, 10]
+WITNESS_REPS = 5               # timed F=256 layers, with and without
+WITNESS_TIMEOUT_S = 400.0      # the witnessed child; (d) has MH_TIMEOUT_S
+# numpy binds threading.Lock when it is imported and takes its generators'
+# locks in compiled code, which leaves no frame: imported after the patch,
+# every generator a repro_torch function makes would be charged to it
+WITNESS_PRELUDE = ("import numpy.random\n"
+                   "from repro_torch.statics import witness\n"
+                   "witness.install()\n")
+# modules whose locks the witness must have wrapped (repro_torch.<name>)
+WITNESS_CHILD_MODULES = (
+    "core.plan_cache", "distributed.placement", "distributed.replication",
+    "kernels.build", "kernels.spmm_accel", "sampling.service",
+    "sampling.store", "serve.fleet", "serve.graph_engine", "serve.scheduler",
+    "tuning.tuner")
+WITNESS_WORKER_MODULES = (
+    "core.plan_cache", "distributed.directory", "distributed.multihost",
+    "distributed.placement", "kernels.build", "kernels.spmm_accel",
+    "serve.fleet", "serve.graph_engine", "serve.scheduler")
+
+
+def witness_graphs():
+    """Phase 17's graphs: the Reddit and Arxiv analogues as phases 4-6
+    build them (raw), and integer copies (values 1-2) of their normalized
+    forms, keyed ``<name>#int``."""
+    from repro_torch.core.graph import gcn_normalize
+    from repro_torch.data.graphs import make_benchmark_graph
+    raws = {name: make_benchmark_graph(name, seed=i)[0]
+            for i, name in enumerate(GRAPHS)}
+    ints = {f"{name}#int": integer_copy(gcn_normalize(g), 60 + i)
+            for i, (name, g) in enumerate(raws.items())}
+    return raws, ints
+
+
+def witness_layer_ms(torch, dev, ints, cache=None):
+    """Median host ms of one served F=WITNESS_F layer of the integer
+    Reddit copy through a fresh ``accel`` engine (``cache`` shared when
+    given, so no plan is rebuilt), and that engine's dispatches."""
+    from repro_torch.serve import GraphServeEngine
+    name = f"{GRAPHS[0]}#int"
+    g = ints[name]
+    engine = GraphServeEngine(device=dev, backend="accel", cache=cache,
+                              max_graphs_per_batch=1)
+    engine.register_graph(name, g)
+    gen = torch.Generator(device=dev).manual_seed(91)
+    x = int_features(torch, g.n_cols, WITNESS_F, gen, dev)
+    engine.serve_one(name, x)                       # builds or pins the plan
+    ms = served_ms(torch, engine, name, x, reps=WITNESS_REPS)
+    engine.close()
+    return ms, engine.stats()["batches_dispatched"]
+
+
+def witness_serve(torch, dev, ints, nnz_chunk):
+    """Phase 17(a): an ``accel`` engine with a PlanTuner (every fourth
+    dispatch of a graph is shadowed, one candidate) holds the integer
+    Reddit and Arxiv copies; WITNESS_THREADS threads submit
+    WITNESS_REQUESTS requests each at F=WITNESS_F while one ``mutate()`` on
+    Arxiv is published mid-stream. Every answer equals the fp64 oracle of
+    one published version, those after its publication the new one.
+    Returns the engine (closed) and a record."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.plan_cache import PartitionConfig
+    from repro_torch.serve import GraphServeEngine
+    from repro_torch.tuning import PlanTuner, default_candidates
+    tuner = PlanTuner(hot_rate=0.0, shadow_fraction=0.25,
+                      candidates=default_candidates(PartitionConfig())[:1])
+    engine = GraphServeEngine(device=dev, backend="accel", tuner=tuner)
+    for name, g in ints.items():
+        engine.register_graph(name, g)
+    mut = f"{MUTATE_GRAPH}#int"
+    (delta,), (_, g_new) = chain_deltas(ints[mut], 80, True, n=1)
+    gen = torch.Generator(device=dev).manual_seed(90)
+    feats = {name: [int_features(torch, g.n_cols, WITNESS_F, gen, dev)
+                    for _ in range(WITNESS_FEATURES)]
+             for name, g in ints.items()}
+    want = {name: [csr_oracle(torch, ints[name], x, nnz_chunk) for x in xs]
+            for name, xs in feats.items()}
+    want_new = [csr_oracle(torch, g_new, x, nnz_chunk) for x in feats[mut]]
+    names = list(ints)
+    half, published = threading.Event(), threading.Event()
+
+    def submitter(t):
+        """Closed loop: each answer before the next request. Thread 0
+        pauses half way until the mutation is published, so each version
+        is read."""
+        out = []
+        for i in range(WITNESS_REQUESTS):
+            if t == 0 and i == WITNESS_REQUESTS // 2:
+                half.set()
+                if not published.wait(600):
+                    raise AssertionError("witness (a): no publication")
+            name = names[(t + i) % len(names)]
+            k = (i // len(names)) % WITNESS_FEATURES
+            y = engine.submit(name, feats[name][k]).result(timeout=600)
+            out.append((name, k, t == 0 and published.is_set(), y.double()))
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(WITNESS_THREADS) as pool:
+        futs = [pool.submit(submitter, t) for t in range(WITNESS_THREADS)]
+        if not half.wait(600):
+            raise AssertionError("witness (a): submitters stalled")
+        info = engine.mutate(mut, delta).result(timeout=600)
+        published.set()
+        got = [f.result(timeout=600) for f in futs]
+    versions = [0, 0]
+    for name, k, after, y in (item for items in got for item in items):
+        if name == mut and torch.equal(y, want_new[k]):
+            versions[1] += 1
+        elif torch.equal(y, want[name][k]) and not (after and name == mut):
+            versions[0] += name == mut
+        else:
+            raise AssertionError(f"witness (a) {name}: an answer equals "
+                                 f"no published version's product, or an "
+                                 f"old one after the publication")
+    if min(versions) < 1:
+        raise AssertionError(f"witness (a): reads of the old/new version "
+                             f"{versions}")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    y = engine.serve_one(mut, feats[mut][0])
+    if engine.graph_version(mut) != 1 or \
+            not torch.equal(y.double(), want_new[0]):
+        raise AssertionError("witness (a): the read after the mutation is "
+                             "not the new version's product")
+    engine.close()                  # waits for a shadow still in flight
+    st = engine.stats()
+    if st["shadow_dispatches"] < 1 or st["shadow_failures"]:
+        raise AssertionError(f"witness (a): shadows {st['shadow_dispatches']}"
+                             f", failures {st['shadow_failures']}")
+    return engine, {
+        "requests": WITNESS_THREADS * WITNESS_REQUESTS, "wall_ms": wall_ms,
+        "mutated_reads": versions, "mutate": {
+            k: info[k] for k in ("version", "repaired", "reason")},
+        "dispatches": st["batches_dispatched"],
+        "shadows": st["shadow_dispatches"],
+        "promotions": st["tuned_promotions"]}
+
+
+def witness_fleet(torch, dev, nnz_chunk):
+    """Phase 17(b): a FleetGraphEngine (``accel``, replication on) over
+    ``fleet_slots()`` serves the first WITNESS_ZIPF_NODES graphs of phase
+    15's zipf mix twice (WITNESS_ZIPF_REQUESTS requests from 4 threads):
+    every answer exact, at least one replica promoted."""
+    from repro_torch.serve.fleet import FleetGraphEngine
+    slots = ([torch.device("cpu")] * FLEET_SLOTS if dev.type == "cpu"
+             else fleet_slots(torch))
+    graphs, feats, schedule = zipf_mix(torch, dev, WITNESS_ZIPF_NODES,
+                                       WITNESS_ZIPF_REQUESTS)
+    e = FleetGraphEngine(devices=slots, **ZIPF_ENGINE, **ZIPF_REPLICATION)
+    for k, g in graphs.items():
+        e.register_graph(k, g)
+    outs = zipf_pass(e, schedule, feats) + zipf_pass(e, schedule, feats)
+    oracle = {k: csr_oracle(torch, g, feats[k], nnz_chunk)
+              for k, g in graphs.items()}
+    for gid, y in outs:
+        if not torch.equal(y.double(), oracle[gid]):
+            raise AssertionError(f"witness (b) {gid}: not exact")
+    e.close()
+    st = e.stats()
+    if st["fleet_promotions"] < 1:
+        raise AssertionError("witness (b): no replica promoted")
+    return {"requests": len(outs), "slots": len(slots),
+            "promotions": st["fleet_promotions"],
+            "replica_copies": st["cache_replica_copies"],
+            "slot_routed": slot_routed(st)}
+
+
+def witness_sample(torch, dev, raw, engine, nnz_chunk):
+    """Phase 17(c): one SamplingService batch of WITNESS_SEEDS seeds
+    (fanouts WITNESS_FANOUTS) over a GraphStore of ``raw``, through
+    ``engine``, within the first-order bound of its frontier's oracle."""
+    import numpy as np
+    from repro_torch.sampling import GraphStore, SamplingService
+    store = GraphStore.build(raw, normalize=True)
+    svc = SamplingService(engine, store, WITNESS_FANOUTS, sample_seed=7)
+    seeds = np.sort(np.random.default_rng(5).choice(
+        store.n_nodes, WITNESS_SEEDS, replace=False))
+    gen = torch.Generator(device=dev).manual_seed(92)
+    x = torch.randn((store.n_nodes, WITNESS_F), generator=gen, device=dev)
+    y = svc.aggregate(seeds, x)
+    f = svc.frontier_for(seeds)
+    want, mag, c = aggregate_oracle(torch, f, x, nnz_chunk,
+                                    engine.config.deg_bound)
+    rows = torch.as_tensor(np.searchsorted(f.layers[0], seeds), device=dev)
+    err = check_close("witness (c)", y, want[rows], c * U * mag[rows])
+    return {"layers": [len(layer) for layer in f.layers], "max_err": err}
+
+
+def witness_record(w, modules, tag):
+    """The witness's summary, checked: no cycle, and at least one wrapped
+    lock in each of ``modules``."""
+    rec = w.summary()
+    missing = [m for m in modules
+               if rec["locks_by_module"].get(f"repro_torch.{m}", 0) < 1]
+    if missing:
+        raise AssertionError(f"{tag}: no lock witnessed in {missing}")
+    w.assert_no_cycles()
+    return rec
+
+
+def witness_child():
+    """Phase 17, the witnessed process: ``phase_witness`` starts it with
+    the witness installed before any ``repro_torch`` import (the device in
+    ``sys.argv[1]``). Runs (a), the witnessed twin of the parent's layer
+    timing (on (a)'s plan cache), (c) and (b); prints one JSON record as
+    its last line. Raises on a cycle or a missing module."""
+    import torch
+    from repro_torch.statics import witness
+    w = witness.current()
+    if w is None:
+        raise AssertionError("witness child: the witness is not installed")
+    t_start = time.perf_counter()
+    dev = torch.device(sys.argv[1])
+    nnz_chunk = 1 << 17
+    raws, ints = witness_graphs()
+    reset_launches()
+    engine, rec_a = witness_serve(torch, dev, ints, nnz_chunk)
+    layer_ms, timed = witness_layer_ms(torch, dev, ints, cache=engine.cache)
+    from repro_torch.serve import GraphServeEngine
+    sampler = GraphServeEngine(device=dev, backend="accel")
+    rec_c = witness_sample(torch, dev, raws[MUTATE_GRAPH], sampler,
+                           nnz_chunk)
+    sampler.close()
+    rec_b = witness_fleet(torch, dev, nnz_chunk)
+    launches = read_launches()
+    want_k1 = (rec_a["dispatches"] + 5 * rec_a["shadows"] + timed
+               + sampler.stats()["batches_dispatched"]
+               + rec_b["slot_routed"]["K1"])
+    if launches != {"K1": want_k1, "K2": 0, "K3": 0}:
+        raise AssertionError(f"witness child: launches {launches}, expected "
+                             f"K1 {want_k1} (dispatches + 5 per shadow)")
+    rec = {"serve": rec_a, "fleet": rec_b, "sample": rec_c,
+           "layer_ms": layer_ms, "launches": launches,
+           "seconds": time.perf_counter() - t_start,
+           "witness": witness_record(w, WITNESS_CHILD_MODULES, "child")}
+    print(json.dumps(rec), flush=True)
+
+
+def witness_fleet_worker():
+    """Phase 17(d), one of two ``run_fleet`` workers with the witness
+    installed first: a MultihostGraphEngine (``accel``) holds an integer
+    copy of the ``tiny`` preset graph (one owner); each rank reads it (the
+    other forwards), rank 0 publishes one delta, each rank reads the new
+    version. Every read exact. Prints one JSON record as its last line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.graph import gcn_normalize
+    from repro_torch.data.graphs import make_power_law_graph
+    from repro_torch.distributed.multihost import initialize_multihost
+    from repro_torch.serve import MultihostGraphEngine
+    from repro_torch.statics import witness
+    w = witness.current()
+    if w is None:
+        raise AssertionError("witness worker: the witness is not installed")
+    t_start = time.perf_counter()
+    ctx = initialize_multihost(timeout_s=MH_GLOO_TIMEOUT_S)
+    rank = ctx.process_index
+    dev = ctx.local_devices[0]
+    tag = f"[witness rank {rank}]"
+    reset_launches()
+    name, n, e = PRESET_GRAPHS[-1]
+    g = integer_copy(gcn_normalize(make_power_law_graph(n, e, seed=0)), 61)
+    (delta,), (_, g_new) = chain_deltas(g, 81, True, n=1)
+    engine = MultihostGraphEngine(context=ctx, backend="accel")
+    gates = PeerGates(engine, tag, ("ready", "served", "mutated", "done"))
+    owner = engine.register_graph(name, g) is not None
+    engine.connect_peers()
+    gates.connect(engine.peers[1 - rank])
+    gen = torch.Generator(device=dev).manual_seed(93)
+    x = int_features(torch, g.n_cols, WITNESS_F, gen, dev)
+    nnz_chunk = 1 << 17
+    gates.gate("ready")
+    if not torch.equal(engine.serve_one(name, x).double(),
+                       csr_oracle(torch, g, x, nnz_chunk)):
+        raise AssertionError(f"{tag} {name}: not exact")
+    gates.gate("served")
+    if rank == 0:
+        engine.mutate(name, delta).result(timeout=MH_GATE_S)
+    gates.gate("mutated")
+    y = engine.serve_one(name, x)
+    if engine.graph_version(name) != 1 or not torch.equal(
+            y.double(), csr_oracle(torch, g_new, x, nnz_chunk)):
+        raise AssertionError(f"{tag} {name} after the delta: version "
+                             f"{engine.graph_version(name)} or not exact")
+    gates.gate("done")
+    st = engine.stats()
+    engine.close()
+    dist.destroy_process_group()
+    launches = read_launches()
+    if launches != slot_routed(st):
+        raise AssertionError(f"{tag} launches {launches} != per-slot routed "
+                             f"{slot_routed(st)}")
+    rec = {"rank": rank, "owner": owner, "launches": launches,
+           "forwarded": st["fleet_forwarded"],
+           "answered": st["fleet_remote_served"],
+           "broadcasts": st["fleet_mutation_broadcasts"],
+           "remote_mutations": st["fleet_remote_mutations"],
+           "plan_repairs": st["plan_repairs"],
+           "seconds": time.perf_counter() - t_start,
+           "witness": witness_record(w, WITNESS_WORKER_MODULES, tag)}
+    print(json.dumps(rec), flush=True)
+
+
+def phase_witness(torch, card_line, device="cuda", prelude=""):
+    """Phase 17: the port's lock-order witness on the served path. Times
+    one F=WITNESS_F layer here (no witness), then runs ``witness_child``
+    (a)-(c) in a fresh process and ``witness_fleet_worker`` in two
+    ``run_fleet`` processes, each with the witness installed before any
+    ``repro_torch`` import (``prelude`` runs after it). Every process must
+    report no cycle. Returns the K1/K2/K3 launches made under the
+    witness, and each process's record (``child``, ``workers``)."""
+    from repro_torch.distributed.multihost import run_fleet
+    t_phase = time.perf_counter()
+    _, ints = witness_graphs()
+    plain_ms, _ = witness_layer_ms(torch, torch.device(device), ints)
+    del ints
+    src = mh_worker_src(WITNESS_PRELUDE + prelude, entry="witness_child")
+    proc = subprocess.run([sys.executable, "-c", src, device],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=WITNESS_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"witness child exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    workers = sorted(run_fleet(
+        mh_worker_src(WITNESS_PRELUDE + prelude, entry="witness_fleet_worker"),
+        num_processes=2, n_local_slots=1, device=device,
+        timeout_s=MH_TIMEOUT_S, cwd=ROOT), key=lambda r: r["rank"])
+    for who, rec in [("child", child)] + [(f"rank {r['rank']}", r)
+                                          for r in workers]:
+        wit = rec["witness"]
+        if wit["cycles"]:
+            raise AssertionError(f"witness {who}: cycles {wit['cycles']}")
+        log(f"witness {who}: {wit['acquisitions']} acquisitions, "
+            f"{wit['edges']} order edges, no cycle; instrumented locks per "
+            f"module {wit['locks_by_module']}; launches {rec['launches']}; "
+            f"{rec['seconds']:.1f}s")
+    a, b, c = child["serve"], child["fleet"], child["sample"]
+    log(f"witness (a): {a['requests']} requests from {WITNESS_THREADS} "
+        f"threads in {a['wall_ms']:.1f} ms, {a['dispatches']} dispatches, "
+        f"{a['shadows']} shadows, {a['promotions']} promotions; mutate "
+        f"{a['mutate']} mid-stream, reads of the old/new version "
+        f"{a['mutated_reads']}; all exact")
+    log(f"witness (b): {b['requests']} zipf requests on {b['slots']} slots, "
+        f"{b['promotions']} replica promotions, {b['replica_copies']} "
+        f"replica copies, per-slot routed {b['slot_routed']}; all exact")
+    log(f"witness (c): sampled batch layers {c['layers']}, max err "
+        f"{c['max_err']:.2e}")
+    if sum(r["forwarded"] for r in workers) < 1 or \
+            sum(r["answered"] for r in workers) < 1 or \
+            sum(r["plan_repairs"] for r in workers) != 1:
+        raise AssertionError(f"witness (d): {workers}")
+    log("witness (d): " + "; ".join(
+        f"rank {r['rank']} owner {r['owner']}, forwarded {r['forwarded']}, "
+        f"answered {r['answered']}, broadcasts {r['broadcasts']}, remote "
+        f"mutations {r['remote_mutations']}" for r in workers))
+    log(f"witness: one served F={WITNESS_F} layer of {GRAPHS[0]} (accel, "
+        f"host clock, median of {WITNESS_REPS}): {child['layer_ms']:.3f} ms "
+        f"witnessed, {plain_ms:.3f} ms unwitnessed; {card_line}")
+    launches = {k: child["launches"][k] + sum(r["launches"][k]
+                                              for r in workers)
+                for k in ("K1", "K2", "K3")}
+    if launches["K1"] < 1:
+        raise AssertionError(f"witness launches {launches}")
+    log(f"phase 17 (witness) {time.perf_counter() - t_phase:.1f}s; "
+        f"launches {launches}")
+    return launches, {"child": child, "workers": workers}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3809,11 +4232,13 @@ def main():
     torch.cuda.empty_cache()
     # the workers share the card: this process holds no phase's tensors
     multihost = phase_multihost(torch, card_line)
+    witnessed, _ = phase_witness(torch, card_line)
     k1["launches_by_path"] = {"serve": launches_a,
                               "train": train["launches"],
                               "mutate": mutate["K1"], "tune": tune["K1"],
                               "sample": sample["K1"], "fleet": fleet["K1"],
-                              "multihost": multihost["K1"]}
+                              "multihost": multihost["K1"],
+                              "witness": witnessed["K1"]}
     k2["launches_by_path"] = {"routed": launches["K2"],
                               "fleet": fleet["K2"],
                               "multihost": multihost["K2"]}
@@ -3821,8 +4246,9 @@ def main():
                               "mutate": mutate["K3"], "fleet": fleet["K3"],
                               "multihost": multihost["K3"]}
     for rec, k in ((k2, "K2"), (k3, "K3")):
-        if sample[k]:
-            rec["launches_by_path"]["sample"] = sample[k]
+        for path, counts in (("sample", sample), ("witness", witnessed)):
+            if counts[k]:
+                rec["launches_by_path"][path] = counts[k]
     k4_err = phase_k4_cases(torch, dev)
     p, p32, xs, x32, metas, k4_launches = phase_moe(torch, dev)
     k4 = phase_timing_k4(torch, p, p32, xs, x32, metas, k4_launches, k4_err)

@@ -66,6 +66,7 @@ __all__ = [
     "FrontierExchange",
     "free_port",
     "run_fleet",
+    "run_cpu_fleet",
 ]
 
 # env vars the harness publishes to its worker subprocesses
@@ -323,13 +324,13 @@ class PeerClient:
         delay = 0.05
         while True:
             try:
-                sock = socket.create_connection(self.address,
+                sock = socket.create_connection(self.address,  # statics: ignore[blocking-call-under-lock] -- the per-channel mutex intentionally serializes connect + one in-flight request; only forwarders block on it
                                                 timeout=self.timeout_s)
                 break
             except OSError:
                 if time.monotonic() >= deadline:
                     raise
-                time.sleep(delay)
+                time.sleep(delay)  # statics: ignore[blocking-call-under-lock] -- bounded connect backoff under the same per-channel mutex (see above)
                 delay = min(delay * 2, 0.5)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         _send_frame(sock, ("hello", {"process_index": self.process_index,
@@ -493,6 +494,17 @@ def run_fleet(worker_src: str, *, num_processes: int = 2,
     except _BindRace:
         return _run_fleet_once(worker_src, num_processes, n_local_slots,
                                device, timeout_s, extra_env, cwd)
+
+
+def run_cpu_fleet(worker_src: str, *, num_processes: int = 2,
+                  n_local_devices: int = 4, timeout_s: float = 600.0,
+                  extra_env: Optional[Dict[str, str]] = None,
+                  cwd: Optional[str] = None) -> List[Dict]:
+    """The reference's CPU harness under its own name: :func:`run_fleet`
+    with ``n_local_devices`` CPU slots per process."""
+    return run_fleet(worker_src, num_processes=num_processes,
+                     n_local_slots=n_local_devices, device="cpu",
+                     timeout_s=timeout_s, extra_env=extra_env, cwd=cwd)
 
 
 class _BindRace(RuntimeError):

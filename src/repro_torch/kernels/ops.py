@@ -13,6 +13,7 @@ these callables:
   * ``spmm_blocked``         — a PyTorch twin with the *same* slab layout and
                                the one-hot block reduction of the reference's
                                jnp twin
+  * ``spmm_batched``         — several graphs fused into one dispatch
   * oracle                   — in ref.py (layout-free ground truth)
 
 The grouped GEMM has two:
@@ -32,11 +33,21 @@ from .spmm_accel import spmm_block_slabs, spmm_block_slabs_windowed
 from .spmm_hbm import spmm_block_slabs_hbm
 
 __all__ = ["spmm_accel", "spmm_pallas", "spmm_pallas_windowed",
-           "spmm_pallas_hbm", "spmm_auto", "spmm_blocked",
+           "spmm_pallas_hbm", "spmm_auto", "spmm_blocked", "spmm_batched",
            "grouped_matmul_pallas", "grouped_matmul_blocked"]
 
 # elements of the [blocks, C, F] gather the twin materialises at once
 _BLOCKED_CHUNK_ELEMS = 1 << 25
+
+
+def spmm_batched(slab_list, x_list, n_rows_list, *, backend="accel",
+                 pad_blocks_to=None, return_decision=False):
+    """Fused multi-graph SpMM (one kernel launch for the whole batch); see
+    ``kernels/spmm_batched.py::spmm_batched`` for the backends."""
+    from .spmm_batched import spmm_batched as _batched
+    return _batched(slab_list, x_list, n_rows_list, backend=backend,
+                    pad_blocks_to=pad_blocks_to,
+                    return_decision=return_decision)
 
 
 def _slab_args(slabs):

@@ -96,3 +96,37 @@ def test_fused_batch_validation():
         port_b.spmm_batched([port[0].slabs], [x, x], [port[0].n_rows])
     with pytest.raises(ValueError, match="one n_rows"):
         port_b.batch_graph_slabs([port[0].slabs], [1, 2], [1])
+
+
+@pytest.mark.parametrize("backend", ["accel", "auto", "blocked"])
+def test_ops_spmm_batched_equals_reference_ops(backend):
+    """``kernels.ops.spmm_batched``, the public name, against the
+    reference's ``repro.kernels.ops.spmm_batched`` (its Pallas kernel in
+    interpret mode) on the same slabs: exact on an integer-valued graph.
+    The signatures match but for the reference's ``interpret=``."""
+    import inspect
+
+    from repro.kernels import ops as ref_ops
+    from repro_torch.kernels import ops as port_ops
+    ref_params = [p for p in inspect.signature(
+        ref_ops.spmm_batched).parameters if p != "interpret"]
+    assert list(inspect.signature(port_ops.spmm_batched).parameters) == \
+        ref_params
+    assert "spmm_batched" in port_ops.__all__
+    graphs = [_int_graph(50 + 30 * i, seed=20 + i) for i in range(2)]
+    ref, port = _plans(graphs, CFGS[:2])
+    rng = np.random.default_rng(1)
+    xs = [rng.integers(-3, 4, (g.n_cols, 6)).astype(np.float32)
+          for g in graphs]
+    want, ref_dec = ref_ops.spmm_batched(
+        [p.slabs for p in ref], [jnp.asarray(x) for x in xs],
+        [p.n_rows for p in ref], return_decision=True)
+    got, dec = port_ops.spmm_batched(
+        [p.slabs for p in port], [torch.from_numpy(x) for x in xs],
+        [p.n_rows for p in port], backend=backend, return_decision=True)
+    assert (dec is None) == (backend != "auto")
+    if dec is not None:
+        assert dec.backend == ref_dec.backend == "resident"
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -51,7 +51,28 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "sampling.store", "sampling.sampler", "sampling.service",
                 "distributed.replication", "distributed.placement",
                 "distributed.shard_spmm", "distributed.directory",
-                "distributed.multihost", "launch.mesh", "serve.fleet"):
+                "distributed.multihost", "launch.mesh", "serve.fleet",
+                "statics.findings", "statics.lock_rules",
+                "statics.future_rules", "statics.analyzer",
+                "statics.witness"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path
+    # the port's own rule family, in place of the reference's Pallas one
+    assert "repro_torch.statics.launch_rules" in have
+    assert "repro_torch.statics.__main__" in have
+
+
+def test_statics_loads_no_other_port_module():
+    """The witness is installed before the rest of the port loads, so the
+    statics package imports the standard library only."""
+    probe = ("import sys, repro_torch.statics, repro_torch.statics.__main__\n"
+             "print(','.join(sorted(m for m in sys.modules if m.split('.')[0]"
+             " in ('repro_torch', 'repro', 'jax', 'torch', 'numpy'))))")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.strip().split(",")
+    assert all(m == "repro_torch" or m.startswith("repro_torch.statics")
+               for m in loaded), loaded

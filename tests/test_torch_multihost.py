@@ -40,7 +40,8 @@ from repro_torch.core.graph import CSRGraph
 from repro_torch.core.plan_repair import EdgeDelta
 from repro_torch.distributed import multihost as port_mh
 from repro_torch.distributed.multihost import (
-    MultihostContext, PeerClient, initialize_multihost, run_fleet,
+    MultihostContext, PeerClient, initialize_multihost, run_cpu_fleet,
+    run_fleet,
 )
 from repro_torch.launch.mesh import graph_mesh, multihost_graph_mesh
 from repro_torch.serve import MultihostGraphEngine
@@ -572,3 +573,26 @@ def test_run_fleet_starts_again_after_a_bind_race(tmp_path):
         run_fleet(src, num_processes=1, n_local_slots=1, device="cpu",
                   timeout_s=FLEET_TIMEOUT_S, cwd=REPO_ROOT,
                   extra_env={"MH_DIR": str(d2), "MH_RACES": "2"})
+
+
+def test_run_cpu_fleet_is_run_fleet_on_cpu_slots():
+    """The reference's harness name, with its signature: the same records
+    as ``run_fleet(..., device="cpu")`` for a worker that reports what the
+    harness handed it."""
+    import inspect
+    assert inspect.signature(run_cpu_fleet) == \
+        inspect.signature(ref_mh.run_cpu_fleet)
+    src = textwrap.dedent("""
+        import json, os
+        print(json.dumps({k: os.environ.get(k) for k in (
+            "REPRO_MH_PID", "REPRO_MH_NPROCS", "REPRO_MH_SLOTS",
+            "REPRO_MH_DEVICE", "REPRO_MH_EPOCH", "MH_EXTRA")}))
+    """)
+    kw = dict(num_processes=2, timeout_s=FLEET_TIMEOUT_S,
+              extra_env={"MH_EXTRA": "x"}, cwd=REPO_ROOT)
+    got = run_cpu_fleet(src, n_local_devices=3, **kw)
+    want = run_fleet(src, n_local_slots=3, device="cpu", **kw)
+    assert got == want
+    assert [r["REPRO_MH_PID"] for r in got] == ["0", "1"]
+    assert {(r["REPRO_MH_SLOTS"], r["REPRO_MH_DEVICE"], r["MH_EXTRA"])
+            for r in got} == {("3", "cpu", "x")}

@@ -116,10 +116,10 @@ Phases (any failure exits non-zero and prints no result line):
    through ``simt`` on the same bf16 operands and with fp32 operands, the
    plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
    tokens (each GEMM, bound by the weights' bytes), each beside its bound,
-   and the whole ``moe_block`` at both; then the ``{"kernels": [...]}``
-   line (K1's, K2's and K3's records also carry ``launches_by_path``, their
-   launches on each path that runs them), the card line, and the
-   ``{"ok": true, ...}`` line last.
+   and the whole ``moe_block`` at both; then phase 18, then the
+   ``{"kernels": [...]}`` line (K1's, K2's and K3's records also carry
+   ``launches_by_path``, their launches on each path that runs them), the
+   card line, and the ``{"ok": true, ...}`` line last.
 13. slice E's autotuning path (run after phase 9), on the Arxiv analogue
    and its integer copy as phase 9 builds them: (a) every candidate of
    ``default_candidates`` for the tpu default and paper (12, 32) (slab
@@ -241,6 +241,37 @@ Phases (any failure exits non-zero and prints no result line):
    equal its engines' dispatches plus 5 per shadow plus the fleet's
    per-slot routed count; each worker's equal its per-slot routed counts;
    their sum is the ``"witness"`` entry of ``launches_by_path``.
+18. slice I's LM path (after phase 12; no kernel of the port is on it):
+   (a) ``phi3-mini-3.8b`` at full width and depth (32 layers, d_model
+   3072, 32 heads of 96, d_ff 8192, vocab 32064; 3,821,079,552 bf16
+   parameters drawn from a CUDA generator with seed 0, equal to
+   ``lm.config_param_count``) served by ``ServeEngine(batch=4,
+   max_seq=256, eos_id=-1)`` through ``examples/serve_lm.py``'s
+   ``drive()``: 3 requests through ``generate()``, then 8 ``submit()``s
+   through the 4 slots; every answer has its length and its tokens lie in
+   the vocabulary, ``slots_reused > 0``, the same prompt twice gives the
+   same tokens. One 128-token prompt's last-token logits from
+   ``prefill_forward``, from the prompt fed through ``decode_step`` and
+   from ``lm_forward`` agree within relative rms ``LM_BF16_REL_RMS``; a
+   recycled slot agrees with a fresh state within 0.08. (b) every other
+   arch at full width, its depth cut to ``LM_CUTS`` (one at a time, freed
+   before the next): a short ``generate()`` in bf16, then an fp32 copy of
+   the same weights: prefill and 4 decode steps against ``lm_forward`` on
+   the card (MoE with dropless capacity) and against the same functions
+   on the CPU, each within ``LM_FP32_REL`` of max |logit| (hubert: its
+   frame logits, prefill only). Then phi3 at full width cut to
+   ``LM_BF16_LAYERS`` layers, in bf16 as served: forward, prefill and 4
+   decode steps on the card against the CPU within the serving bound
+   (atol = rtol = 0.08). (c) CUDA-event times beside the card line:
+   phi3's decode step at batch 4 and 32 (max_seq 256) beside the bytes it
+   must move (weights and the static KV cache it reads), prefill at B=1,
+   T=512 beside its bound (the layers' matmuls for T tokens, the head for
+   one, causal attention; or the weights' bytes), one decode step under
+   torch.profiler (top device ops; device-idle share over the step's own
+   traced span), the engine under load (``LM_LOAD``: 128-token prompts, 32
+   new tokens, as many closed-loop clients as slots; tokens/s, slot
+   utilization, latency), peak memory. (d) K1-K4's launch counters are the
+   same before and after the phase.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -4188,6 +4219,586 @@ def phase_witness(torch, card_line, device="cuda", prelude=""):
     return launches, {"child": child, "workers": workers}
 
 
+LM_ARCH = "phi3-mini-3.8b"   # examples/serve_lm.py's default arch, uncut
+LM_BATCH = 4
+LM_MAX_SEQ = 256
+LM_MAX_NEW = 16               # examples/serve_lm.py's --max-new default
+LM_PROMPT = 128               # (a)'s consistency prompt
+LM_TIMED_BATCHES = (4, 32)    # (c)'s decode steps
+LM_PREFILL_T = 512            # (c)'s prefill
+# (c)'s engine load: (batch, requests) of LM_LOAD_PROMPT random tokens and
+# LM_LOAD_NEW new tokens each, from as many closed-loop clients as slots
+LM_LOAD = ((4, 64), (32, 256))
+LM_LOAD_PROMPT = 128
+LM_LOAD_NEW = 32
+LM_BF16_LAYERS = 2            # (b): phi3's depth in the bf16 card-vs-CPU check
+# (b): every other arch at full width, its depth cut to its smallest
+# whole unit of layers
+LM_CUTS = {
+    "qwen1.5-32b": ({"n_layers": 2}, "2 of 64 layers"),
+    "internlm2-20b": ({"n_layers": 2}, "2 of 48 layers"),
+    "chameleon-34b": ({"n_layers": 2}, "2 of 48 layers"),
+    "gemma2-27b": ({"n_layers": 2}, "one local/global pair of 23"),
+    "deepseek-moe-16b": ({"n_layers": 2},
+                         "the dense first layer + 1 of 27 MoE layers"),
+    "dbrx-132b": ({"n_layers": 1}, "1 of 40 MoE layers"),
+    "mamba2-780m": ({"n_layers": 2}, "2 of 48 layers"),
+    "zamba2-7b": ({"n_layers": 7}, "one group (6 mamba layers + the "
+                  "shared block) + 1 tail layer, of 81 mamba layers"),
+    "hubert-xlarge": ({"n_layers": 2}, "2 of 48 layers, prefill only"),
+}
+# Bounds of phase 18, on the max over a result of |a - b| / max|b| (fp32)
+# or of ||a - b|| / ||b|| over each logit vector (bf16):
+# * fp32, one function computed twice (card against CPU, or prefill
+#   against decode): the sums differ in order only. A dot product of
+#   length K <= 36,864 (gemma-2's d_ff) carries ~sqrt(K) * 2**-24 ~ 1.1e-5
+#   relative rounding; ~10 chained products per layer make ~1e-4; the
+#   bound is 10x that.
+# * bf16, phi3 at full depth, three paths (prefill, decode, forward): each
+#   rounds the residual stream and every projection to bf16 (rms relative
+#   error 2**-9 / sqrt(3) ~ 1.1e-3 per rounding) about 10 times per layer;
+#   over 32 layers, sqrt(320) * 1.1e-3 ~ 0.02 relative on the logits where
+#   two paths round differently, ~0.028 between two paths; the bound is
+#   ~3.5x that. A wrong cache position, mask or rope angle decorrelates
+#   the logits (~1.4).
+LM_FP32_REL = 1e-3
+LM_BF16_REL_RMS = 0.1
+LM_RESET_TOL = 0.08           # tests/test_serve.py:73, phi3's slot reuse
+
+
+def k_launches():
+    """K1-K4's launch counters."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    return dict(read_launches(), K4=grouped_matmul.launches)
+
+
+def rel_rms(torch, got, want):
+    """max over the leading rows of ||got - want|| / ||want||, in fp64."""
+    g, w = got.double().flatten(0, -2), want.double().flatten(0, -2)
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def rel_max(torch, got, want):
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def lm_paths(torch, lm, cfg, params, x, T, extra):
+    """Logits of one model three ways: ``lm_forward`` over all T + extra
+    positions, ``prefill_forward`` over T then ``extra`` decode steps. Each
+    returned [B, extra + 1, V]: the positions T-1 .. T+extra-1."""
+    with torch.inference_mode():
+        full = lm.lm_forward(cfg, params, x)[:, T - 1:].float()
+        lg, st = lm.prefill_forward(cfg, params, x[:, :T])
+        st = lm.pad_prefill_caches(cfg, st, T + extra)
+        dec = [lg.float()]
+        for t in range(extra):
+            lg, st = lm.decode_step(cfg, params, x[:, T + t:T + t + 1], st)
+            dec.append(lg.float())
+    return full, torch.stack(dec, 1)
+
+
+def lm_serve_checks(torch, cfg, params, dev, card_line):
+    """(a): the example's traffic through ServeEngine, then determinism."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.serve import Request, ServeEngine
+    engine = ServeEngine(cfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ,
+                         eos_id=-1, device=dev)
+    try:
+        out = serve_lm.drive(engine, LM_BATCH, LM_MAX_NEW)
+        sync = [len(r.out) for r in out["sync"]]
+        if sync != [LM_MAX_NEW - 2 * i for i in range(LM_BATCH - 1)]:
+            raise AssertionError(f"generate() lengths {sync}")
+        if [len(o) for o in out["async"]] != out["async_lengths"]:
+            raise AssertionError("submit() answers of the wrong length")
+        toks = [t for r in out["sync"] for t in r.out] + \
+            [t for o in out["async"] for t in o]
+        if not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError("a token outside the vocabulary")
+        st = out["stats"]
+        if st["slots_reused"] < 1:
+            raise AssertionError(f"no slot reused: {st}")
+        a = engine.generate([Request([5, 6, 7], 6)])[0].out
+        b = engine.generate([Request([5, 6, 7], 6)])[0].out
+        if a != b:
+            raise AssertionError(f"the same prompt gave {a} then {b}")
+    finally:
+        engine.close()
+    log(f"phase 18 (a) engine, the example's traffic (a smoke check, not a "
+        f"load): {len(toks)} tokens, rounds {st['rounds']}, steps "
+        f"{st['steps']}, slots_reused {st['slots_reused']}")
+    return st
+
+
+def lm_engine_load(torch, cfg, params, dev, card_line):
+    """(c): ServeEngine under load. For each (batch, requests) of LM_LOAD,
+    ``batch`` closed-loop clients (each submits its next request when its
+    last is answered) send ``requests`` prompts of LM_LOAD_PROMPT random
+    tokens for LM_LOAD_NEW new tokens each. Every answer must have its
+    length and lie in the vocabulary, and no sequence may hit the cache."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serve import ServeEngine
+    out = {}
+    for batch, n_req in LM_LOAD:
+        prompts = np.random.default_rng(8).integers(
+            0, cfg.vocab, (n_req, LM_LOAD_PROMPT)).tolist()
+        engine = ServeEngine(cfg, params, batch=batch, max_seq=LM_MAX_SEQ,
+                             eos_id=-1, max_pending=n_req, device=dev)
+
+        def client(c):
+            return [engine.submit(prompts[i], LM_LOAD_NEW).result()
+                    for i in range(c, n_req, batch)]
+
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(batch) as pool:
+                answers = [a for r in pool.map(client, range(batch))
+                           for a in r]
+            wall = time.perf_counter() - t0
+            st = engine.stats()
+        finally:
+            engine.close()
+        if len(answers) != n_req or any(
+                len(a) != LM_LOAD_NEW for a in answers) or not all(
+                0 <= t < cfg.vocab for a in answers for t in a):
+            raise AssertionError(f"load B={batch}: malformed answers")
+        if st["cache_exhausted"]:
+            raise AssertionError(f"load B={batch}: {st['cache_exhausted']} "
+                                 f"sequences hit the KV budget")
+        rec = {"batch": batch, "requests": n_req, "wall_s": wall,
+               "steps": st["steps"], "rounds": st["rounds"],
+               "slots_reused": st["slots_reused"],
+               "tokens": st["tokens_generated"],
+               "tokens_per_s": st["tokens_per_s"],
+               "all_tokens_per_s": (st["tokens_generated"]
+                                    + st["prompt_tokens"])
+               / st["total_round_s"],
+               "step_ms": st["total_round_s"] / st["steps"] * 1e3,
+               "slot_utilization": st["slot_utilization"],
+               "p50_ms": st["sched_p50_latency_s"] * 1e3,
+               "p99_ms": st["sched_p99_latency_s"] * 1e3}
+        out[f"b{batch}"] = rec
+        log(f"phase 18 (c) engine load B={batch}: {n_req} requests of "
+            f"{LM_LOAD_PROMPT} prompt + {LM_LOAD_NEW} new tokens from "
+            f"{batch} closed-loop clients, {wall:.1f}s: {rec['tokens']} "
+            f"tokens generated, {rec['tokens_per_s']:.1f} tokens/s "
+            f"generated ({rec['all_tokens_per_s']:.1f} with the prompt "
+            f"tokens, which the engine feeds through the decode step), "
+            f"slot_utilization {rec['slot_utilization']:.3f}, "
+            f"{rec['steps']} steps in {rec['rounds']} rounds at "
+            f"{rec['step_ms']:.3f} ms a step, slots_reused "
+            f"{rec['slots_reused']}, latency p50 {rec['p50_ms']:.1f} ms, "
+            f"p99 {rec['p99_ms']:.1f} ms (host clock, queue wait "
+            f"included); {card_line}")
+    return out
+
+
+def lm_consistency(torch, lm, cfg, params, dev):
+    """(a): the last-token logits of one 128-token prompt from prefill,
+    from the prompt fed through decode_step, and from lm_forward."""
+    import numpy as np
+    T = LM_PROMPT
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, T)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        pre, _ = lm.prefill_forward(cfg, params, x)
+        st = lm.init_decode_state(cfg, 1, T, device=dev)
+        for t in range(T):
+            dec, st = lm.decode_step(cfg, params, x[:, t:t + 1], st)
+        full = lm.lm_forward(cfg, params, x)[:, -1]
+    errs = {"prefill-decode": rel_rms(torch, pre, dec),
+            "prefill-forward": rel_rms(torch, pre, full),
+            "decode-forward": rel_rms(torch, dec, full)}
+    if not all(e <= LM_BF16_REL_RMS for e in errs.values()):
+        raise AssertionError(f"phi3 paths disagree: {errs}")
+    if not bool(torch.isfinite(full).all()) or full.shape != (1, cfg.vocab):
+        raise AssertionError("non-finite or misshapen logits")
+    log(f"phase 18 (a) consistency, {T}-token prompt, bf16: relative rms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in errs.items())
+        + f" (bound {LM_BF16_REL_RMS}); max |logit| "
+        f"{float(full.abs().max()):.3f}")
+    return errs
+
+
+def lm_slot_reuse(torch, lm, cfg, params, dev):
+    """(a): a recycled slot against a fresh state (tests/test_serve.py's
+    case, at full width): atol = rtol = 0.08."""
+    occupant, prompt = [5, 9, 2, 7], [3, 8, 6]
+
+    def feed(st, toks):
+        out = []
+        with torch.inference_mode():
+            for t in toks:
+                lg, st = lm.decode_step(cfg, params, torch.tensor(
+                    [[1], [t]], dtype=torch.int32, device=dev), st)
+                out.append(lg[1].float())
+        return out, st
+
+    ref, _ = feed(lm.track_slot_starts(
+        lm.init_decode_state(cfg, 2, 32, device=dev), 2), prompt)
+    st = lm.track_slot_starts(lm.init_decode_state(cfg, 2, 32, device=dev),
+                              2)
+    _, st = feed(st, occupant)
+    st = lm.reset_decode_slot(cfg, st, 1)
+    got, _ = feed(st, prompt)
+    worst = 0.0
+    for r, g in zip(ref, got):
+        excess = (g - r).abs() - LM_RESET_TOL * (1 + r.abs())
+        worst = max(worst, float((g - r).abs().max()))
+        if bool((excess > 0).any()):
+            raise AssertionError(f"recycled slot off by {worst}")
+    log(f"phase 18 (a) slot reuse vs a fresh state: max |diff| {worst:.4f} "
+        f"(atol = rtol = {LM_RESET_TOL})")
+    return worst
+
+
+def lm_timing(torch, lm, cfg, params, dev, card_line, n_params):
+    """(c): phi3's decode step at each of LM_TIMED_BATCHES and its prefill,
+    by CUDA events, beside their bounds; one decode step's device time by
+    torch.profiler."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train.step import make_serve_step
+    step = make_serve_step(cfg)
+    embed = params["embed"].numel()
+    kv_per_slot = 2 * cfg.n_layers * LM_MAX_SEQ * cfg.n_kv_heads \
+        * cfg.d_head * 2
+    times = {}
+    for B in LM_TIMED_BATCHES:
+        st = lm.init_decode_state(cfg, B, LM_MAX_SEQ, device=dev)
+        st = st._replace(pos=LM_MAX_SEQ // 2)
+        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        holder = {"st": st}
+
+        def one():
+            _, _, holder["st"] = step(params, holder["st"], tok)
+
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = cuda_ms(one, 10)
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+        # bytes that must move: every weight but the embedding table's
+        # unread rows, plus the whole static KV cache the step reads
+        nbytes = (n_params - embed + B * cfg.d_model) * 2 + B * kv_per_slot
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        times[f"decode_b{B}"] = {"ms": ms, "wall_ms": wall,
+                                 "bound_ms": bound, "bytes": nbytes}
+        log(f"phase 18 (c) decode step B={B}, max_seq {LM_MAX_SEQ}: "
+            f"{ms:.3f} ms (CUDA events over 10; host clock {wall:.3f} ms), "
+            f"bound {bound:.3f} ms ({nbytes / 1e9:.3f} GB: weights "
+            f"{(n_params - embed) * 2 / 1e9:.3f} + KV cache "
+            f"{B * kv_per_slot / 1e9:.3f}, bytes), {bound / ms * 100:.1f}% "
+            f"of it; {card_line}")
+        if B == LM_TIMED_BATCHES[0]:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("decode_step"):
+                    one()
+                    torch.cuda.synchronize()
+            # device events less the step's own range (its annotation)
+            rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and e.key != "decode_step"]
+            rows.sort(reverse=True)
+            busy = sum(r[0] for r in rows)
+            span = trace_span(prof, "decode_step")
+            if busy <= 0 or span is None:
+                log("phase 18 (c) profile: no device time recorded; "
+                    "not measured")
+            else:
+                span_ms, busy_ms = span
+                times["profile"] = {"busy_ms": busy, "span_ms": span_ms,
+                                    "idle_share": 1 - busy_ms / span_ms,
+                                    "kernels": sum(r[1] for r in rows)}
+                log(f"phase 18 (c) profile of one decode step B={B}: "
+                    f"device kernels {busy:.3f} ms in "
+                    f"{times['profile']['kernels']} launches over the "
+                    f"step's traced span of {span_ms:.3f} ms (kernels busy "
+                    f"{busy_ms:.3f} ms of it): device idle "
+                    f"{times['profile']['idle_share'] * 100:.1f}%")
+                for ms_, count, key in rows[:8]:
+                    log(f"phase 18 (c) profile:   {ms_:8.3f} ms "
+                        f"{ms_ / busy * 100:5.1f}%  x{count:<4d} {key[:60]}")
+                # the same device time by the op that launched it
+                ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                              for e in prof.key_averages()
+                              if e.device_type == DeviceType.CPU
+                              and e.self_device_time_total > 0),
+                             reverse=True)
+                for ms_, count, key in ops[:8]:
+                    log(f"phase 18 (c) profile by op: {ms_:8.3f} ms "
+                        f"{ms_ / busy * 100:5.1f}%  x{count:<4d} {key[:40]}")
+        del holder, st
+    T = LM_PREFILL_T
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, T)).astype(np.int32)).to(dev)
+
+    def prefill():
+        with torch.inference_mode():
+            lm.prefill_forward(cfg, params, x)
+
+    prefill()
+    torch.cuda.synchronize()
+    ms = cuda_ms(prefill, 5)
+    # operations: the layers' matmuls for T tokens, the head for the last
+    # token only, and causal attention (QK^T and PV over T(T+1)/2 pairs);
+    # bytes: every weight but the embedding's unread rows, read once
+    layer_mm = sum(t.numel() for t in tree_leaves(params["layers"])
+                   if t.dim() == 3)
+    head = params["head"].numel() if "head" in params else embed
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.d_head * T * (T + 1) // 2
+    flops = 2 * layer_mm * T + 2 * head + attn
+    nbytes = (n_params - embed + T * cfg.d_model) * 2
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    times["prefill"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                        "flops": flops, "bytes": nbytes}
+    log(f"phase 18 (c) prefill B=1 T={T}: {ms:.3f} ms (CUDA events over 5), "
+        f"bound {bound:.3f} ms ({by}: {flops / 1e12:.3f} TFLOP at the dense "
+        f"bf16 rate = {ops_ms:.3f} ms, of which layer matmuls 2 x "
+        f"{layer_mm} x {T}, the head 2 x {head} for the last token, "
+        f"attention {attn / 1e9:.1f} GFLOP; {nbytes / 1e9:.3f} GB of "
+        f"weights = {bytes_ms:.3f} ms), {bound / ms * 100:.1f}% of it; "
+        f"{card_line}")
+    return times
+
+
+def tree_leaves(tree):
+    """The tensors of a tree of dicts."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def trace_span(prof, name):
+    """(the traced span of the ``record_function`` ``name`` to its last
+    kernel's end, the union of the device kernels' intervals in it), ms;
+    None when the trace holds no device event. The range's own device
+    annotation, also named ``name``, is not a kernel."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    marks = [e for e in events if e.name == name
+             and e.device_type == DeviceType.CPU]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA and e.name != name)
+    if not marks or not kernels:
+        return None
+    t0 = marks[0].time_range.start
+    t1 = max(marks[0].time_range.end, kernels[-1][1])
+    busy, end = 0.0, t0
+    for a, b in kernels:
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    return (t1 - t0) / 1e3, busy / 1e3
+
+
+def tree_apply(fn, tree):
+    """``fn`` on every tensor of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_apply(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def dropless(cfg):
+    """``cfg`` with an expert capacity no routing can exceed (E / top_k)."""
+    if cfg.family != "moe":
+        return cfg
+    return cfg.replace(moe_capacity_factor=max(
+        cfg.moe_capacity_factor, cfg.n_experts / cfg.top_k))
+
+
+def short_generate(cfg, params, dev):
+    """Two requests through a 2-slot ServeEngine (bf16, on the card)."""
+    from repro_torch.serve import Request, ServeEngine
+    engine = ServeEngine(cfg, params, batch=2, max_seq=32, eos_id=-1,
+                         device=dev)
+    try:
+        return [r.out for r in engine.generate(
+            [Request([1, 7, 42], 4), Request([3, 11], 3)])]
+    finally:
+        engine.close()
+
+
+def lm_cut_arch(torch, lm, arch, card_line, dev):
+    """(b): one arch at full width and cut depth. bf16 weights from a CUDA
+    generator; a short generate() in bf16; then an fp32 copy: prefill and
+    4 decode steps against lm_forward on the card, and the same on the CPU
+    from the same weights, each within LM_FP32_REL."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cut, desc = LM_CUTS[arch]
+    cfg = get_config(arch).replace(**cut)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_lm(cfg, gen, device=dev)
+    n = lm.param_count(params)
+    if n != lm.config_param_count(cfg):
+        raise AssertionError(f"{arch}: {n} parameters drawn")
+    B, T, extra = 2, 16, 4
+    rng = np.random.default_rng(7)
+    if cfg.frontend == "token":
+        x = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T + extra))
+                             .astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.normal(size=(B, T, cfg.d_model))
+                             .astype(np.float32))
+    rec = {"params": n, "cut": desc}
+    if cfg.family != "encoder":
+        outs = short_generate(cfg, params, dev)
+        if [len(o) for o in outs] != [4, 3] or not all(
+                0 <= t < cfg.vocab for o in outs for t in o):
+            raise AssertionError(f"{arch}: generate() gave {outs}")
+    p32 = tree_apply(lambda t: t.float(), params)
+    del params
+    xd = x.to(dev)
+    with torch.inference_mode():
+        if cfg.family == "encoder":
+            card = dec = lm.prefill_forward(cfg, p32, xd)[0]
+            full = lm.lm_forward(cfg, p32, xd)
+        else:
+            full, card = lm_paths(torch, lm, cfg, p32, xd, T, extra)
+            dec = card
+            if dropless(cfg) is not cfg:
+                # capacity drops depend on each call's tokens, so prefill
+                # is held against decode with dropless expert capacity
+                full, dec = lm_paths(torch, lm, dropless(cfg), p32, xd, T,
+                                     extra)
+    rec["prefill_vs_decode"] = rel_max(torch, dec, full)
+    pcpu = tree_apply(lambda t: t.cpu(), p32)
+    del p32
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        if cfg.family == "encoder":
+            cpu = lm.prefill_forward(cfg, pcpu, x)[0]
+        else:
+            _, cpu = lm_paths(torch, lm, cfg, pcpu, x, T, extra)
+    rec["cpu_s"] = time.perf_counter() - t1
+    del pcpu
+    rec["card_vs_cpu"] = rel_max(torch, card.cpu(), cpu)
+    if not (rec["prefill_vs_decode"] <= LM_FP32_REL
+            and rec["card_vs_cpu"] <= LM_FP32_REL):
+        raise AssertionError(f"{arch}: {rec}")
+    rec["s"] = time.perf_counter() - t0
+    what = ("frame logits" if cfg.family == "encoder"
+            else f"prefill + {extra} decode steps")
+    log(f"phase 18 (b) {arch} cut to {desc}: {n} params; {what} in fp32, "
+        f"against lm_forward {rec['prefill_vs_decode']:.2e}"
+        + (" (dropless)" if dropless(cfg) is not cfg else "")
+        + f", card vs CPU "
+        f"{rec['card_vs_cpu']:.2e} of max|logit| (bound {LM_FP32_REL}); "
+        + ("" if cfg.family == "encoder" else "generate() ok in bf16; ")
+        + f"{rec['s']:.1f}s ({rec['cpu_s']:.1f}s on the CPU); {card_line}")
+    return rec
+
+
+def lm_bf16_cpu(torch, lm, card_line, dev):
+    """(b): phi3 at full width cut to LM_BF16_LAYERS layers, in bf16 as
+    served: lm_forward, prefill and 4 decode steps on the card against the
+    same functions on the CPU from the same weights, within the serving
+    bound |card - cpu| <= LM_RESET_TOL * (1 + |cpu|)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    full = get_config(LM_ARCH).n_layers
+    cfg = get_config(LM_ARCH).replace(n_layers=LM_BF16_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_lm(cfg, gen, device=dev)
+    B, T, extra = 2, 16, 4
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B, T + extra)).astype(np.int32))
+    card = lm_paths(torch, lm, cfg, params, x.to(dev), T, extra)
+    card = [c.cpu() for c in card]
+    pcpu = tree_apply(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = lm_paths(torch, lm, cfg, pcpu, x, T, extra)
+    cpu_s = time.perf_counter() - t0
+    del pcpu
+    rec = {"cpu_s": cpu_s}
+    for what, g, w in zip(("forward", "prefill+decode"), card, cpu):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"phi3 bf16 {what}: non-finite logits")
+        excess = (g - w).abs() - LM_RESET_TOL * (1 + w.abs())
+        rec[what] = {"max_abs": float((g - w).abs().max()),
+                     "rel_rms": rel_rms(torch, g, w),
+                     "max_logit": float(w.abs().max())}
+        if bool((excess > 0).any()):
+            raise AssertionError(f"phi3 bf16 {what}, card vs CPU: {rec}")
+    log(f"phase 18 (b) {LM_ARCH} cut to {LM_BF16_LAYERS} of {full} layers, bf16 "
+        f"as served, card vs CPU: "
+        + "; ".join(f"{k} max |diff| {v['max_abs']:.4f}, relative rms "
+                    f"{v['rel_rms']:.4f} (max |logit| {v['max_logit']:.3f})"
+                    for k, v in rec.items() if k != "cpu_s")
+        + f" (bound atol = rtol = {LM_RESET_TOL}); {cpu_s:.1f}s on the CPU; "
+        f"{card_line}")
+    return rec
+
+
+def phase_lm(torch, card_line, device="cuda"):
+    """Phase 18: slice I's path (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    before = k_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_lm(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n = lm.param_count(params)
+    if n != lm.config_param_count(cfg):
+        raise AssertionError(f"{LM_ARCH}: {n} parameters drawn, "
+                             f"{lm.config_param_count(cfg)} counted")
+    log(f"phase 18 (a) {LM_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n} bf16 "
+        f"parameters ({n * 2 / 1e9:.3f} GB) drawn on the card from seed 0 "
+        f"in {time.perf_counter() - t0:.1f}s")
+    rec = {"params": n}
+    rec["engine"] = lm_serve_checks(torch, cfg, params, dev, card_line)
+    rec["consistency"] = lm_consistency(torch, lm, cfg, params, dev)
+    rec["slot_reuse"] = lm_slot_reuse(torch, lm, cfg, params, dev)
+    rec["times"] = lm_timing(torch, lm, cfg, params, dev, card_line, n)
+    rec["load"] = lm_engine_load(torch, cfg, params, dev, card_line)
+    rec["peak_gib_phi3"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["bf16_cpu"] = lm_bf16_cpu(torch, lm, card_line, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cut"] = {}
+    for arch in LM_CUTS:
+        rec["cut"][arch] = lm_cut_arch(torch, lm, arch, card_line, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    after = k_launches()
+    if after != before:
+        raise AssertionError(f"K1-K4 launched on the LM path: {before} -> "
+                             f"{after}")
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (d) K1-K4 launches unchanged over the phase ({after}): "
+        f"none of them is on the LM path")
+    log(f"phase 18 {rec['s']:.1f}s; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB ({rec['peak_gib_phi3']:.2f} with phi3 "
+        f"served); {card_line}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4252,6 +4863,11 @@ def main():
     k4_err = phase_k4_cases(torch, dev)
     p, p32, xs, x32, metas, k4_launches = phase_moe(torch, dev)
     k4 = phase_timing_k4(torch, p, p32, xs, x32, metas, k4_launches, k4_err)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del p, p32, xs, x32, metas
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm(torch, card_line)          # resets the peak
     peak = max(peak, torch.cuda.max_memory_allocated())
     log(f"peak device memory {peak / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t0:.1f}s")

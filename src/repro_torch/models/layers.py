@@ -1,13 +1,21 @@
-"""Shared building blocks: dense parameter initialisation and the MLP.
+"""Shared building blocks: norms, rotary embeddings, parameter
+initialisation and the MLP.
 
-Weights default to bf16; activation math runs in fp32 and is cast back to
-the activation dtype, as in the reference (``repro.models.layers``). The
-reference's ``shard(...)`` annotation is a no-op without a device mesh and
-has no counterpart here.
+Parameters are dicts of tensors; every layer is a pair of ``init_*`` /
+``apply`` functions. Weights default to bf16; norms, softmax, rotary and
+activations run in fp32 and are cast back to the activation dtype, as in
+the reference (``repro.models.layers``). The reference's ``shard(...)``
+annotation in ``apply_mlp`` is left out: :func:`repro_torch.sharding.shard`
+returns its input unchanged on one card (``lm.py`` keeps its calls).
+
+Every initialiser draws in fp32 from an explicit ``torch.Generator`` on the
+generator's device, then casts. On the ``meta`` device it draws nothing
+(the generator may be None): that is how a full configuration's parameters
+are counted without allocating them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,17 +24,100 @@ import torch.nn.functional as F
 PARAM_DTYPE = torch.bfloat16
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+def to_torch(a) -> torch.Tensor:
+    """One array of any type numpy can read, keeping its dtype. numpy holds
+    bf16 as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
+    it goes through its uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
+def normal(generator: Optional[torch.Generator], shape: Sequence[int],
+           scale: float, dtype: torch.dtype = PARAM_DTYPE,
+           device=None) -> torch.Tensor:
+    """``shape`` ~ N(0, 1) * scale, drawn in fp32 from ``generator`` on the
+    generator's device, then cast to ``dtype`` and moved to ``device`` (the
+    generator's device when None). On ``meta``, an empty tensor."""
+    if is_meta(device):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=generator.device) * scale
+    return w.to(device=device or generator.device, dtype=dtype)
+
+
+def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
                dtype: torch.dtype = PARAM_DTYPE,
                scale: Optional[float] = None,
                device=None) -> torch.Tensor:
-    """``[d_in, d_out]`` weights ~ N(0, 1) * scale (default ``1/sqrt(d_in)``),
-    drawn in fp32 from ``generator`` on the generator's device, then cast to
-    ``dtype`` and moved to ``device`` (the generator's device when None)."""
+    """``[d_in, d_out]`` weights ~ N(0, 1) * scale (default
+    ``1/sqrt(d_in)``), drawn as :func:`normal` draws."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator,
-                    dtype=torch.float32, device=generator.device) * scale
-    return w.to(device=device or generator.device, dtype=dtype)
+    return normal(generator, (d_in, d_out), scale, dtype, device)
+
+
+def embed_init(generator: Optional[torch.Generator], vocab: int, d: int,
+               dtype: torch.dtype = PARAM_DTYPE, device=None) -> torch.Tensor:
+    """``[vocab, d]`` embeddings ~ N(0, 0.02^2)."""
+    return normal(generator, (vocab, d), 0.02, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# norms (fp32 math, cast back)
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) * (1 + weight)``, in fp32, cast back to ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / std * weight + bias``, in fp32, cast back."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)``."""
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_table(positions: torch.Tensor, d_head: int, theta: float = 10_000.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables: positions ``[*T]`` -> (``[*T, d_head/2]``,
+    ``[*T, d_head/2]``), on the positions' device."""
+    half = d_head // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: ``[..., T, H, D]``; cos/sin: ``[T, D/2]`` (or broadcastable).
+    Rotates the two halves in fp32 and casts back."""
+    half = x.shape[-1] // 2
+    c = cos[..., None, :]  # broadcast over heads
+    s = sin[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,

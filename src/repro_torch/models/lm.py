@@ -1,0 +1,686 @@
+"""LM assembly for all assigned architectures.
+
+One ``init_lm`` / ``forward_trunk`` / ``lm_loss`` / ``prefill_forward`` /
+``decode_step`` API covers five families (dense, moe, ssm, hybrid,
+encoder), as in the reference (``repro.models.lm``). Parameters keep the
+reference's layer-stacked leading axes (``[L, ...]``; gemma-2 local/global
+pairs ``[L/2, 2, ...]``; zamba-2 groups ``[n_groups, g, ...]`` of mamba
+layers, each followed by the shared attn+mlp block with its per-site
+LoRA), so :func:`params_from_jax` converts the reference's tree leaf by
+leaf. Each ``lax.scan`` of the reference is a Python loop over the leading
+index, on views.
+
+Decode state is updated in place: ``decode_step`` writes each layer's
+cache entry through a view of the stacked cache, and ``reset_decode_slot``
+zeroes a slot's recurrent state and sets its start. ``DecodeState.pos`` is
+a host int. Use :meth:`DecodeState.clone` to keep an earlier state.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.plan_cache import DeviceLike, resolve_device
+from ..sharding import shard
+from . import attention as A
+from . import moe as M
+from . import ssm as S
+from .layers import (PARAM_DTYPE, apply_mlp, dense_init, dot, embed_init,
+                     init_mlp, is_meta, layer_norm, rms_norm, to_torch)
+
+__all__ = ["init_lm", "param_count", "config_param_count", "params_from_jax",
+           "embed_inputs", "forward_trunk", "lm_logits", "lm_forward",
+           "lm_loss", "prefill_forward", "DecodeState", "decode_state_from_jax",
+           "pad_prefill_caches", "init_decode_state", "track_slot_starts",
+           "reset_decode_slot", "decode_step"]
+
+
+# ---------------------------------------------------------------------------
+# trees: dicts of tensors, KVCache / MambaCache named tuples
+# ---------------------------------------------------------------------------
+def _tree_map(fn, tree, *rest):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    return fn(tree, *rest)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _at(tree, idx):
+    """Views of every leaf at leading index ``idx``."""
+    return _tree_map(lambda t: t[idx], tree)
+
+
+def _put(store: Dict[str, Any], key: str, lead: Tuple[int, ...], idx,
+         value) -> None:
+    """``store[key][idx] = value``, allocating ``store[key]`` with leading
+    dims ``lead`` on the first put (one layer at a time: never a list of
+    layers stacked at the end)."""
+    if key not in store:
+        store[key] = _tree_map(lambda t: t.new_empty(lead + tuple(t.shape)),
+                               value)
+    _tree_map(lambda dst, src: dst[idx].copy_(src), store[key], value)
+
+
+def _stack(fn, n: int):
+    """``fn()`` drawn ``n`` times, each leaf on a new leading axis."""
+    out: Dict[str, Any] = {}
+    for i in range(n):
+        _put(out, "x", (n,), i, fn())
+    return out["x"]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def _init_norm(cfg: ArchConfig, device):
+    kw = dict(dtype=PARAM_DTYPE, device=device)
+    if cfg.norm == "layer":
+        return {"w": torch.ones((cfg.d_model,), **kw),
+                "b": torch.zeros((cfg.d_model,), **kw)}
+    return {"w": torch.zeros((cfg.d_model,), **kw)}
+
+
+def _norm(cfg: ArchConfig, p, x):
+    if cfg.norm == "layer":
+        return layer_norm(x, p["w"], p["b"])
+    return rms_norm(x, p["w"])
+
+
+# ---------------------------------------------------------------------------
+# per-layer init
+# ---------------------------------------------------------------------------
+def _init_attn_layer(cfg: ArchConfig, g, dev):
+    p = {
+        "ln1": _init_norm(cfg, dev),
+        "attn": A.init_attention(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.d_head, qkv_bias=cfg.qkv_bias,
+                                 device=dev),
+        "ln2": _init_norm(cfg, dev),
+    }
+    if cfg.post_block_norm:
+        p["ln1_post"] = _init_norm(cfg, dev)
+        p["ln2_post"] = _init_norm(cfg, dev)
+    return p
+
+
+def _init_dense_layer(cfg: ArchConfig, g, dev, d_ff=None):
+    p = _init_attn_layer(cfg, g, dev)
+    p["mlp"] = init_mlp(g, cfg.d_model, d_ff or cfg.d_ff, gated=cfg.mlp_gated,
+                        device=dev)
+    return p
+
+
+def _init_moe_layer(cfg: ArchConfig, g, dev):
+    p = _init_attn_layer(cfg, g, dev)
+    p["moe"] = M.init_moe(g, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                          n_shared=cfg.n_shared_experts, device=dev)
+    return p
+
+
+def _init_mamba_layer(cfg: ArchConfig, g, dev):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return {
+        "ln1": _init_norm(cfg, dev),
+        "mamba": S.init_mamba2(g, cfg.d_model, d_inner, cfg.ssm_head_dim,
+                               cfg.ssm_state, cfg.ssm_conv_k, device=dev),
+    }
+
+
+def _hybrid_counts(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(n_groups, mamba_per_group, tail) with n_layers mamba layers total."""
+    g = cfg.hybrid_group
+    n_groups = cfg.n_layers // g
+    return n_groups, g, cfg.n_layers - n_groups * g
+
+
+def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None, *,
+            device: DeviceLike = None) -> Dict[str, Any]:
+    """Random parameters drawn from ``generator`` (on its device) onto
+    ``device`` (``cuda`` unless named), each stacked tensor allocated once
+    and filled one layer at a time. On ``meta`` nothing is drawn and the
+    generator may be None (see :func:`config_param_count`)."""
+    dev = resolve_device(device)
+    if generator is None and not is_meta(dev):
+        raise ValueError("init_lm needs a torch.Generator off the meta device")
+    g = generator
+    params: Dict[str, Any] = {"final_norm": _init_norm(cfg, dev)}
+    if cfg.frontend == "token":
+        params["embed"] = embed_init(g, cfg.vocab, cfg.d_model, device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(g, cfg.d_model, cfg.vocab, device=dev)
+
+    fam = cfg.family
+    if fam in ("dense", "encoder"):
+        if cfg.local_global_period == 2:
+            if cfg.n_layers % 2:
+                raise ValueError("local/global pairs need an even n_layers")
+            params["layers"] = _stack(
+                lambda: _stack(lambda: _init_dense_layer(cfg, g, dev), 2),
+                cfg.n_layers // 2)
+        else:
+            params["layers"] = _stack(lambda: _init_dense_layer(cfg, g, dev),
+                                      cfg.n_layers)
+    elif fam == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            params["dense_layers"] = _stack(
+                lambda: _init_dense_layer(cfg, g, dev, d_ff=cfg.first_dense_ff),
+                nd)
+        params["layers"] = _stack(lambda: _init_moe_layer(cfg, g, dev),
+                                  cfg.n_layers - nd)
+    elif fam == "ssm":
+        params["layers"] = _stack(lambda: _init_mamba_layer(cfg, g, dev),
+                                  cfg.n_layers)
+    elif fam == "hybrid":
+        n_groups, gs, tail = _hybrid_counts(cfg)
+        params["layers"] = _stack(
+            lambda: _stack(lambda: _init_mamba_layer(cfg, g, dev), gs),
+            n_groups)
+        if tail:
+            params["tail"] = _stack(lambda: _init_mamba_layer(cfg, g, dev),
+                                    tail)
+        params["shared"] = _init_dense_layer(cfg, g, dev)
+        r = cfg.lora_rank
+
+        def lora_init():
+            return {
+                "a_q": dense_init(g, cfg.d_model, r, device=dev),
+                "b_q": torch.zeros((r, cfg.attn_dim), dtype=PARAM_DTYPE,
+                                   device=dev),
+                "a_i": dense_init(g, cfg.d_model, r, device=dev),
+                "b_i": torch.zeros((r, cfg.d_ff), dtype=PARAM_DTYPE,
+                                   device=dev),
+            }
+
+        params["lora"] = _stack(lora_init, n_groups)
+    else:
+        raise ValueError(fam)
+    return params
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def config_param_count(cfg: ArchConfig) -> int:
+    """``cfg``'s parameter count, from ``init_lm`` on the meta device (no
+    memory is allocated, nothing is drawn)."""
+    return param_count(init_lm(cfg, None, device="meta"))
+
+
+def params_from_jax(cfg: ArchConfig, tree, device: DeviceLike = None):
+    """The reference's ``init_lm(cfg, key)`` tree (leaves of any array type
+    numpy reads, bf16 included) as this package's parameters on ``device``,
+    each leaf in its own dtype (an fp32 copy of the tree stays fp32).
+    Raises ValueError where the tree's keys or shapes are not those
+    ``init_lm(cfg)`` makes here."""
+    dev = resolve_device(device)
+    want = init_lm(cfg, None, device="meta")
+
+    def conv(w, a, path):
+        if isinstance(w, dict):
+            if not isinstance(a, dict) or set(a) != set(w):
+                raise ValueError(f"{path or 'params'}: keys "
+                                 f"{sorted(a) if isinstance(a, dict) else a!r}"
+                                 f", expected {sorted(w)}")
+            return {k: conv(w[k], a[k], f"{path}.{k}" if path else k)
+                    for k in w}
+        t = to_torch(a)
+        if tuple(t.shape) != tuple(w.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(w.shape)}")
+        return t.to(dev)
+
+    return conv(want, tree, "")
+
+
+# ---------------------------------------------------------------------------
+# blocks (forward)
+# ---------------------------------------------------------------------------
+def _attn_kwargs(cfg: ArchConfig, local: bool):
+    return dict(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        causal=cfg.causal, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window if local else None,
+        softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+        use_banded=local,
+    )
+
+
+def _ffn(cfg: ArchConfig, p, h):
+    """The block's second half: (out, aux loss or None) through its MoE or
+    its MLP."""
+    if "moe" in p:
+        return M.moe_capacity(p["moe"], h, top_k=cfg.top_k,
+                              n_experts=cfg.n_experts,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              act=cfg.act)
+    return apply_mlp(p["mlp"], h, act=cfg.act, gated=cfg.mlp_gated), None
+
+
+def _dense_block(cfg: ArchConfig, p, h, *, local=False, q_chunk=512,
+                 kv_chunk=512, return_kv=False):
+    """Attention + MLP (or MoE) block -> (h, aux or None, KVCache or
+    None)."""
+    a_in = _norm(cfg, p["ln1"], h)
+    out = A.attention_forward(p["attn"], a_in, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, return_kv=return_kv,
+                              **_attn_kwargs(cfg, local))
+    attn_out, kv = out if return_kv else (out, None)
+    if cfg.post_block_norm:
+        attn_out = _norm(cfg, p["ln1_post"], attn_out)
+    h = h + attn_out
+    mlp_out, aux = _ffn(cfg, p, _norm(cfg, p["ln2"], h))
+    if cfg.post_block_norm:
+        mlp_out = _norm(cfg, p["ln2_post"], mlp_out)
+    return h + mlp_out, aux, kv
+
+
+def _mamba_block(cfg: ArchConfig, p, h, chunk=128, return_state=False):
+    """-> (h, MambaCache or None)."""
+    out = S.mamba2_forward(p["mamba"], _norm(cfg, p["ln1"], h),
+                           head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                           chunk=chunk, return_state=return_state)
+    out, mc = out if return_state else (out, None)
+    return h + out, mc
+
+
+def _shared_params(shared, lora):
+    """zamba2's shared attn+mlp block with one site's LoRA on wq and wi."""
+    attn = dict(shared["attn"])
+    attn["wq"] = attn["wq"] + (lora["a_q"].float()
+                               @ lora["b_q"].float()).to(attn["wq"].dtype)
+    mlp = dict(shared["mlp"])
+    mlp["wi"] = mlp["wi"] + (lora["a_i"].float()
+                             @ lora["b_i"].float()).to(mlp["wi"].dtype)
+    return {**shared, "attn": attn, "mlp": mlp}
+
+
+# ---------------------------------------------------------------------------
+# trunk
+# ---------------------------------------------------------------------------
+def _sinusoid(T: int, D: int, device) -> torch.Tensor:
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * i / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def embed_inputs(cfg: ArchConfig, params, inputs) -> torch.Tensor:
+    """tokens [B,T] int (token frontend) or embeddings [B,T,D] (stub)."""
+    if cfg.frontend == "token":
+        h = params["embed"][inputs.long()]
+        if cfg.name.startswith("gemma"):
+            h = (h.float() * (cfg.d_model ** 0.5)).to(h.dtype)
+    else:
+        h = inputs
+        if cfg.family == "encoder":  # stub frontend: add sinusoidal positions
+            h = h + _sinusoid(h.shape[1], cfg.d_model, h.device).to(
+                h.dtype)[None]
+    return shard(h, "batch", None, None)
+
+
+def _trunk(cfg: ArchConfig, params, h, *, q_chunk, kv_chunk, ssd_chunk,
+           caches: Optional[Dict[str, Any]] = None):
+    """[B, T, D] -> ([B, T, D] before the final norm, aux). With a
+    ``caches`` dict, each layer's decode cache is stored into it."""
+    fam = cfg.family
+    keep = caches is not None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, return_kv=keep)
+
+    def dense(key, stack, lead, idx, **kw):
+        nonlocal h, aux
+        h, a, kv = _dense_block(cfg, _at(stack, idx), h, **kw, **chunks)
+        if a is not None:
+            aux = aux + a
+        if keep:
+            _put(caches, key, lead, idx, kv)
+
+    def mamba(key, stack, lead, idx):
+        nonlocal h
+        h, mc = _mamba_block(cfg, _at(stack, idx), h, chunk=ssd_chunk,
+                             return_state=keep)
+        if keep:
+            _put(caches, key, lead, idx, mc)
+
+    if fam in ("dense", "encoder", "moe"):
+        if "dense_layers" in params:
+            nd = params["dense_layers"]["ln1"]["w"].shape[0]
+            for i in range(nd):
+                dense("kv_dense", params["dense_layers"], (nd,), i)
+        layers = params["layers"]
+        n = layers["ln1"]["w"].shape[0]
+        if cfg.local_global_period == 2:
+            for i in range(n):
+                for j in (0, 1):
+                    dense("kv", layers, (n, 2), (i, j), local=(j == 0))
+        else:
+            for i in range(n):
+                dense("kv", layers, (n,), i)
+    elif fam == "ssm":
+        n = params["layers"]["ln1"]["w"].shape[0]
+        for i in range(n):
+            mamba("mamba", params["layers"], (n,), i)
+    elif fam == "hybrid":
+        n_groups, gs, tail = _hybrid_counts(cfg)
+        for gi in range(n_groups):
+            for j in range(gs):
+                mamba("mamba", params["layers"], (n_groups, gs), (gi, j))
+            sp = _shared_params(params["shared"], _at(params["lora"], gi))
+            h, _, kv = _dense_block(cfg, sp, h, **chunks)
+            if keep:
+                _put(caches, "kv", (n_groups,), gi, kv)
+        if "tail" in params:
+            for i in range(tail):
+                mamba("mamba_tail", params["tail"], (tail,), i)
+    else:
+        raise ValueError(fam)
+    return h, aux
+
+
+def forward_trunk(cfg: ArchConfig, params, h, *, q_chunk=512, kv_chunk=512,
+                  ssd_chunk=128):
+    """[B, T, D] -> ([B, T, D] after the final norm, aux_loss)."""
+    h, aux = _trunk(cfg, params, h, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                    ssd_chunk=ssd_chunk)
+    return _norm(cfg, params["final_norm"], h), aux
+
+
+def _head_weights(cfg: ArchConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def _logits(cfg: ArchConfig, h, W) -> torch.Tensor:
+    logits = dot(h, W).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def lm_logits(cfg: ArchConfig, params, h) -> torch.Tensor:
+    logits = _logits(cfg, h, _head_weights(cfg, params))
+    return shard(logits, *(["batch"] + [None] * (logits.dim() - 2)
+                           + ["model"]))
+
+
+def lm_forward(cfg: ArchConfig, params, inputs, **kw) -> torch.Tensor:
+    """Full logits [B, T, V] — tests / small models only."""
+    h = embed_inputs(cfg, params, inputs)
+    h, _ = forward_trunk(cfg, params, h, **kw)
+    return lm_logits(cfg, params, h)
+
+
+def lm_loss(cfg: ArchConfig, params, inputs, labels, *, loss_chunk=512,
+            aux_weight=0.01, **kw):
+    """Next-token CE (its value; the backward is the training slice's),
+    seq-chunked so [B, Tc, V] logits never exceed a chunk.
+
+    labels: int [B, T], -1 = masked. Returns (loss, {"ce", "aux"}).
+    """
+    h = embed_inputs(cfg, params, inputs)
+    h, aux = forward_trunk(cfg, params, h, **kw)
+    T = h.shape[1]
+    W = _head_weights(cfg, params)
+    c = min(loss_chunk, T)
+    if T % c:
+        raise ValueError(f"sequence length {T} is not a multiple of the "
+                         f"loss chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, T, c):
+        logits = shard(_logits(cfg, h[:, s:s + c], W), "batch", None, "model")
+        yc = labels[:, s:s + c].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc.clamp(min=0)[..., None])[..., 0]
+        valid = (yc >= 0).float()
+        tot = tot + torch.sum((lse - gold) * valid)
+        cnt = cnt + torch.sum(valid)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+class DecodeState(NamedTuple):
+    caches: Any        # family-specific dict, layer-stacked
+    pos: int           # tokens already in cache
+    # per-slot sequence start (int32[B]); None = every slot started at 0.
+    # A slot reused mid-stream (continuous batching) sets start[b] to the
+    # admission position so attention never sees the previous occupant's
+    # stale cache entries; see reset_decode_slot.
+    start: Optional[torch.Tensor] = None
+
+    def clone(self) -> "DecodeState":
+        """A copy sharing no tensor with this state."""
+        return DecodeState(_tree_map(torch.clone, self.caches), self.pos,
+                           None if self.start is None else self.start.clone())
+
+
+def decode_state_from_jax(state, device: DeviceLike = None) -> DecodeState:
+    """The reference's ``DecodeState`` (any array type numpy reads) as this
+    package's, on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        fields = getattr(x, "_fields", None)
+        if fields == ("k", "v"):
+            return A.KVCache(*(to_torch(a).to(dev) for a in x))
+        if fields == ("conv", "ssm"):
+            return S.MambaCache(*(to_torch(a).to(dev) for a in x))
+        raise TypeError(f"unexpected cache node {type(x).__name__}")
+
+    start = None if state.start is None else to_torch(state.start).to(dev)
+    return DecodeState(conv(state.caches), int(np.asarray(state.pos)), start)
+
+
+def pad_prefill_caches(cfg: ArchConfig, state: DecodeState, max_seq: int
+                       ) -> DecodeState:
+    """Grow prefill KV caches (length T) to the decode budget ``max_seq``."""
+    caches = dict(state.caches)
+    for key in ("kv", "kv_dense"):
+        if key in caches:
+            k = caches[key].k
+            pad = max_seq - k.shape[k.dim() - 3]      # [..., S, KH, Dh]
+            caches[key] = A.KVCache(
+                *(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                  for t in caches[key]))
+    return DecodeState(caches, state.pos, state.start)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
+                      device: DeviceLike = None) -> DecodeState:
+    dev = resolve_device(device)
+    fam = cfg.family
+
+    def kv(lead):
+        shape = lead + (batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+        return A.KVCache(*(torch.zeros(shape, dtype=PARAM_DTYPE, device=dev)
+                           for _ in range(2)))
+
+    def mcache(lead):
+        d_inner = cfg.ssm_expand * cfg.d_model
+        H = d_inner // cfg.ssm_head_dim
+        conv_dim = d_inner + 2 * cfg.ssm_state
+        return S.MambaCache(
+            torch.zeros(lead + (batch, cfg.ssm_conv_k - 1, conv_dim),
+                        dtype=PARAM_DTYPE, device=dev),
+            torch.zeros(lead + (batch, H, cfg.ssm_state, cfg.ssm_head_dim),
+                        dtype=torch.float32, device=dev))
+
+    if fam in ("dense", "moe"):
+        nd = cfg.first_dense_layers if fam == "moe" else 0
+        lead = ((cfg.n_layers // 2, 2) if cfg.local_global_period == 2
+                else (cfg.n_layers - nd,))
+        caches: Dict[str, Any] = {"kv": kv(lead)}
+        if nd:
+            caches["kv_dense"] = kv((nd,))
+    elif fam == "ssm":
+        caches = {"mamba": mcache((cfg.n_layers,))}
+    elif fam == "hybrid":
+        n_groups, g, tail = _hybrid_counts(cfg)
+        caches = {"mamba": mcache((n_groups, g)), "kv": kv((n_groups,))}
+        if tail:
+            caches["mamba_tail"] = mcache((tail,))
+    else:
+        raise ValueError(f"{cfg.family} has no decode step")
+    return DecodeState(caches, 0)
+
+
+def track_slot_starts(state: DecodeState, batch: int) -> DecodeState:
+    """Enable per-slot sequence-start tracking on a decode state (required
+    before :func:`reset_decode_slot`); all slots start at position 0."""
+    if state.start is not None:
+        return state
+    dev = _leaves(state.caches)[0].device
+    return DecodeState(state.caches, state.pos,
+                       torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def reset_decode_slot(cfg: ArchConfig, state: DecodeState, slot: int
+                      ) -> DecodeState:
+    """Recycle batch slot ``slot`` for a NEW sequence starting at the
+    current position (continuous-batching slot reuse), in place.
+
+    Attention caches need no rewrite: ``start[slot] = pos`` masks every
+    stale cache position for that slot, and rope attention scores depend
+    only on position differences, so a sequence admitted at position p is
+    equivalent to one started at 0. Recurrent (mamba) state is genuinely
+    stateful, so the slot's conv/ssm entries are zeroed — a zero state IS
+    the fresh-sequence initial state.
+    """
+    if state.start is None:
+        raise ValueError("state has no per-slot start tracking; wrap it "
+                         "with track_slot_starts(state, batch) first")
+    caches = state.caches
+    # ssm: [n_layers, B, ...]; hybrid groups: [n_groups, g, B, ...]
+    for key, axis in (("mamba", 2 if cfg.family == "hybrid" else 1),
+                      ("mamba_tail", 1)):
+        if key in caches:
+            for t in caches[key]:
+                t.select(axis, slot).zero_()
+    state.start[slot] = state.pos
+    return state
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode (serving)
+# ---------------------------------------------------------------------------
+def prefill_forward(cfg: ArchConfig, params, inputs, *, q_chunk=512,
+                    kv_chunk=512, ssd_chunk=128):
+    """Serving prefill: returns (last-token logits [B, V], DecodeState).
+
+    Encoder family returns (frame logits [B, T, V], None).
+    """
+    h = embed_inputs(cfg, params, inputs)
+    chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+    if cfg.family == "encoder":
+        hh, _ = forward_trunk(cfg, params, h, **chunks)
+        return lm_logits(cfg, params, hh), None
+    caches: Dict[str, Any] = {}
+    h, _ = _trunk(cfg, params, h, caches=caches, **chunks)
+    h_last = _norm(cfg, params["final_norm"], h[:, -1:, :])
+    logits = lm_logits(cfg, params, h_last)[:, 0]
+    return logits, DecodeState(caches, h.shape[1])
+
+
+def _attn_decode_block(cfg, p, h, kv, pos, tables, *, local=False,
+                       start=None):
+    """``tables``: the step's shared rope table and masks, built on first
+    use (one per window) and reused by every layer of the step."""
+    window = cfg.sliding_window if local else None
+    if window not in tables:
+        tables[window] = A.decode_tables(
+            kv.k.shape[1], pos, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            window=window, start=start, device=h.device)
+    attn_out, _ = A.attention_decode(
+        p["attn"], _norm(cfg, p["ln1"], h), kv, pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap, window=window,
+        scale=cfg.attn_scale, start=start, tables=tables[window])
+    if cfg.post_block_norm:
+        attn_out = _norm(cfg, p["ln1_post"], attn_out)
+    h = h + attn_out
+    mlp_out, _ = _ffn(cfg, p, _norm(cfg, p["ln2"], h))
+    if cfg.post_block_norm:
+        mlp_out = _norm(cfg, p["ln2_post"], mlp_out)
+    return h + mlp_out
+
+
+def _mamba_decode_block(cfg, p, h, mc):
+    out, _ = S.mamba2_decode(p["mamba"], _norm(cfg, p["ln1"], h), mc,
+                             head_dim=cfg.ssm_head_dim, state=cfg.ssm_state)
+    return h + out
+
+
+def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
+                state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """One-token step for the whole batch. tokens: [B, 1] -> logits [B, V].
+    Writes the caches in place; the returned state is at ``pos + 1``."""
+    h = embed_inputs(cfg, params, tokens)
+    pos, start, caches = state.pos, state.start, state.caches
+    fam = cfg.family
+    tables: Dict[Any, Any] = {}
+
+    if fam in ("dense", "moe"):
+        if "kv_dense" in caches:
+            for i in range(caches["kv_dense"].k.shape[0]):
+                h = _attn_decode_block(cfg, _at(params["dense_layers"], i), h,
+                                       _at(caches["kv_dense"], i), pos,
+                                       tables, start=start)
+        kv = caches["kv"]
+        if cfg.local_global_period == 2:
+            for i in range(kv.k.shape[0]):
+                for j in (0, 1):
+                    h = _attn_decode_block(
+                        cfg, _at(params["layers"], (i, j)), h,
+                        _at(kv, (i, j)), pos, tables, local=(j == 0),
+                        start=start)
+        else:
+            for i in range(kv.k.shape[0]):
+                h = _attn_decode_block(cfg, _at(params["layers"], i), h,
+                                       _at(kv, i), pos, tables, start=start)
+    elif fam == "ssm":
+        for i in range(caches["mamba"].ssm.shape[0]):
+            h = _mamba_decode_block(cfg, _at(params["layers"], i), h,
+                                    _at(caches["mamba"], i))
+    elif fam == "hybrid":
+        n_groups, gs, _ = _hybrid_counts(cfg)
+        for gi in range(n_groups):
+            for j in range(gs):
+                h = _mamba_decode_block(cfg, _at(params["layers"], (gi, j)),
+                                        h, _at(caches["mamba"], (gi, j)))
+            h = _attn_decode_block(
+                cfg, _shared_params(params["shared"], _at(params["lora"], gi)),
+                h, _at(caches["kv"], gi), pos, tables, start=start)
+        if "mamba_tail" in caches:
+            for i in range(caches["mamba_tail"].ssm.shape[0]):
+                h = _mamba_decode_block(cfg, _at(params["tail"], i), h,
+                                        _at(caches["mamba_tail"], i))
+    else:
+        raise ValueError(f"{fam} has no decode step")
+
+    h = _norm(cfg, params["final_norm"], h)
+    logits = lm_logits(cfg, params, h)[:, 0]
+    return logits, DecodeState(caches, pos + 1, start)

@@ -20,14 +20,14 @@ from __future__ import annotations
 import functools
 from typing import Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.plan_cache import DeviceLike, resolve_device
 from ..kernels.grouped_matmul import grouped_matmul_in_range
 from ..kernels.ops import grouped_matmul_blocked
-from .layers import PARAM_DTYPE, apply_mlp, dense_init, init_mlp, promote
+from .layers import (PARAM_DTYPE, apply_mlp, dense_init, init_mlp, normal,
+                     promote, to_torch)
 
 __all__ = ["DISPATCH_GROUPS", "init_moe", "params_from_jax", "moe_capacity",
            "moe_block", "block_dispatch", "aux_load_balance_loss"]
@@ -40,14 +40,13 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
     """Router ``[d_model, E]`` fp32; ``wi``/``wg`` ``[E, d_model, d_ff]`` and
     ``wo`` ``[E, d_ff, d_model]`` in ``dtype``, ~ N(0, 1/fan_in); a gated
     shared MLP of width ``d_ff * n_shared`` when ``n_shared``. Drawn in fp32
-    from ``generator`` on its device, then moved to ``device``."""
+    from ``generator`` on its device, then moved to ``device`` (on ``meta``
+    nothing is drawn)."""
     dev = resolve_device(device)
-    gd = generator.device
 
     def experts(d_in, d_out):
-        w = torch.randn((n_experts, d_in, d_out), generator=generator,
-                        dtype=torch.float32, device=gd) * (d_in ** -0.5)
-        return w.to(device=dev, dtype=dtype)
+        return normal(generator, (n_experts, d_in, d_out), d_in ** -0.5,
+                      dtype, dev)
 
     p = {"router": dense_init(generator, d_model, n_experts, torch.float32,
                               device=dev),
@@ -60,23 +59,13 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def _to_torch(a) -> torch.Tensor:
-    """One array of any type numpy can read, keeping its dtype. numpy holds
-    bf16 as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
-    it goes through its uint16 bits."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
 def params_from_jax(p: Dict, device: DeviceLike = None) -> Dict:
     """The reference package's ``init_moe`` tree (any array type numpy can
     read) as this package's parameters on ``device``, each leaf in its own
     dtype."""
     dev = resolve_device(device)
     return {k: (params_from_jax(v, dev) if isinstance(v, dict)
-                else _to_torch(v).to(dev)) for k, v in p.items()}
+                else to_torch(v).to(dev)) for k, v in p.items()}
 
 
 def _route(p, x2d: torch.Tensor, top_k: int, normalize: bool):

@@ -6,11 +6,13 @@ operator before and after a mutation, with the tuner attached,
 ``serve_sampled`` full fanout bit for bit against the full graph (on the
 CPU), a frontier hit rate from recurring batches, a delta that repairs or
 drops the cached frontier, and a partitioned store's frontier identical
-to the monolithic one. Each example also defaults to ``cuda``."""
+to the monolithic one, ``serve_lm`` the LM engine's ``generate()`` and
+its slot-reuse admission. Each example also defaults to ``cuda``."""
 import pytest
 import torch
 
-from repro_torch.examples import quickstart, serve_gcn, serve_sampled
+from repro_torch.examples import (quickstart, serve_gcn, serve_lm,
+                                  serve_sampled)
 
 
 def test_quickstart_every_backend_against_the_oracle():
@@ -49,7 +51,17 @@ def test_serve_sampled_bound_holds_on_the_cpu():
     assert b.shape == (200, 3) and bool((b > 0).all())
 
 
-@pytest.mark.parametrize("mod", [quickstart, serve_gcn, serve_sampled])
+def test_serve_lm_end_to_end():
+    out = serve_lm.main(["--device", "cpu", "--batch", "3", "--max-new",
+                         "8"])
+    assert [len(r.out) for r in out["sync"]] == [8, 6]
+    assert [len(o) for o in out["async"]] == out["async_lengths"]
+    assert all(0 <= t < 256 for o in out["async"] for t in o)
+    assert out["stats"]["slots_reused"] > 0
+
+
+@pytest.mark.parametrize("mod", [quickstart, serve_gcn, serve_lm,
+                                 serve_sampled])
 def test_examples_default_to_cuda(mod):
     if torch.cuda.is_available():
         pytest.skip("this checks the CPU-only behaviour")

@@ -54,13 +54,16 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "distributed.multihost", "launch.mesh", "serve.fleet",
                 "statics.findings", "statics.lock_rules",
                 "statics.future_rules", "statics.analyzer",
-                "statics.witness"):
+                "statics.witness", "models.attention", "models.ssm",
+                "models.lm", "sharding.rules", "train.step",
+                "serve.engine"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path
     # the port's own rule family, in place of the reference's Pallas one
     assert "repro_torch.statics.launch_rules" in have
     assert "repro_torch.statics.__main__" in have
+    assert "repro_torch.sharding" in have and "repro_torch.train" in have
 
 
 def test_statics_loads_no_other_port_module():

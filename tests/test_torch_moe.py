@@ -31,7 +31,7 @@ from repro.models.layers import init_mlp as ref_init_mlp
 import repro_torch.models.moe as port_moe
 from repro_torch.configs import get_reduced as port_get_reduced
 from repro_torch.kernels.grouped_matmul import grouped_matmul
-from repro_torch.models.layers import apply_mlp, init_mlp
+from repro_torch.models.layers import apply_mlp, init_mlp, to_torch
 
 GRID = [(8, 2, 0), (8, 2, 1), (4, 1, 0), (16, 4, 2)]   # tests/test_moe.py
 
@@ -250,7 +250,7 @@ def test_reduced_configs_end_to_end(name, dtype):
                          dtype=dtype)
     xj = jnp.asarray(_x((2, 16, cfg.d_model), 1)).astype(dtype)
     tp = port_moe.params_from_jax(p, "cpu")
-    xt = port_moe._to_torch(xj)
+    xt = to_torch(xj)
     want_dtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
     assert tp["wi"].dtype == want_dtype and xt.dtype == want_dtype
     kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts)
@@ -321,7 +321,7 @@ def test_apply_mlp_matches_reference(act, gated):
     # bf16 activations with fp32 weights promote as jnp.dot does
     xb = jnp.asarray(x).astype(jnp.bfloat16)
     want = ref_apply_mlp(p, xb, act=act, gated=gated)
-    got = apply_mlp(tp, port_moe._to_torch(xb), act=act, gated=gated)
+    got = apply_mlp(tp, to_torch(xb), act=act, gated=gated)
     assert str(got.dtype).split(".")[-1] == str(want.dtype)
     _close(got, want)
 

@@ -116,10 +116,11 @@ Phases (any failure exits non-zero and prints no result line):
    through ``simt`` on the same bf16 operands and with fp32 operands, the
    plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
    tokens (each GEMM, bound by the weights' bytes), each beside its bound,
-   and the whole ``moe_block`` at both; then phase 18, then the
-   ``{"kernels": [...]}`` line (K1's, K2's and K3's records also carry
-   ``launches_by_path``, their launches on each path that runs them), the
-   card line, and the ``{"ok": true, ...}`` line last.
+   and the whole ``moe_block`` at both; then phases 18 and 19, then the
+   ``{"kernels": [...]}`` line (every record also carries
+   ``launches_by_path``, its launches on each path that runs it, ``lm``
+   and ``lm_train`` included), the card line, and the ``{"ok": true,
+   ...}`` line last.
 13. slice E's autotuning path (run after phase 9), on the Arxiv analogue
    and its integer copy as phase 9 builds them: (a) every candidate of
    ``default_candidates`` for the tpu default and paper (12, 32) (slab
@@ -272,6 +273,30 @@ Phases (any failure exits non-zero and prints no result line):
    new tokens, as many closed-loop clients as slots; tokens/s, slot
    utilization, latency), peak memory. (d) K1-K4's launch counters are the
    same before and after the phase.
+19. slice J's LM training path (after phase 18, its memory freed; no
+   kernel of the port is on it): (a) ``phi3-mini-3.8b`` at full width and
+   depth, ``init_train_state`` on the card from generator seed 0
+   (3,821,079,552 bf16 parameters with fp32 m, v and master: 53.5 GB),
+   ``make_train_step`` (remat, loss/query/key chunks of 512, peak lr 3e-4,
+   warm-up 2) at B=4, T=512 fed by ``token_batch_fn(vocab=32064, seed=0)``
+   through ``train_loop`` for 6 steps: every loss finite and > 0, every
+   fp32 master leaf moved at step 1 (``leaf_digests``); step ms by CUDA
+   events over steps 3-6 and by the host clock, tokens/s, the model-FLOPs
+   share of the dense bf16 peak, ``adamw_update`` alone against its bytes
+   bound (28 B a parameter), peak memory, one step under torch.profiler
+   (launches, device time by op, idle share over the step's own span; no
+   whole-leaf gradient fill of a stacked leaf). (b) one step at T=4096,
+   B=1: ms and peak memory. (c) phi3 at full width cut to 2 layers, fp32
+   copies of its weights, TF32 off: one step on the card and one on the
+   CPU from the same batch, loss and grad_norm within 1e-5 relative and
+   master within the CPU tests' bounds. (d) the same cut, ``microbatch=2``
+   against none at B=4 within the bf16-accumulation bound. (e) the nine
+   other archs at full width and ``LM_CUTS``' depth: one bf16 step at B=1,
+   T=512 each, finite loss, every master leaf moved, state + grads against
+   the peak (dbrx-132b's one layer: 71.9 GB). (f) reduced phi3 through
+   ``train_loop`` with a ``CheckpointManager``: crash at step 3, resume,
+   the resumed history within ``TRAIN_RESTART_REL``. (g) K1-K4's launch
+   counters are the same before and after the phase.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -4799,6 +4824,540 @@ def phase_lm(torch, card_line, device="cuda"):
     return rec
 
 
+# ------------------------------------------------------------ slice J
+TRAIN_ARCH = LM_ARCH         # phi3-mini-3.8b, uncut
+TRAIN_B, TRAIN_T = 4, 512    # (a)
+TRAIN_STEPS = 6
+TRAIN_TIMED = 2              # (a): steps 3-6 (0-based 2..5) are timed
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_CHUNK = 512            # loss, query and key chunks
+TRAIN_LONG_T = 4096          # (b): train_4k's sequence length, at B=1
+TRAIN_CUT_LAYERS = 2         # (c), (d): phi3 at full width, 2 layers
+TRAIN_CPU_B, TRAIN_CPU_T = 2, 64   # (c)'s batch on the card and the CPU
+TRAIN_MB_B, TRAIN_MB = 4, 2        # (d): B=4, microbatches of 2
+TRAIN_ARCH_T = 512           # (e): B=1
+TRAIN_RESTART = dict(steps=6, crash_at=3, batch=4, seq=32)   # (f)
+ADAMW_BYTES = 28             # (a): bf16 grad and param, fp32 m, v, master:
+                             # each read once and written once (grad: read)
+# Bounds of phase 19:
+# * (c) card against CPU, fp32, one step from the same weights and batch:
+#   the CPU tests' bounds (tests/test_torch_train_step.py): loss and
+#   grad_norm within 1e-5 relative; master within 1e-6 + 1e-5 |w| where
+#   |g| >= 1e-3 max|g| of the leaf, and within 2.2 lr everywhere (a first
+#   Adam step moves an entry by lr (+-1 + wd w): only the sign of g
+#   matters, which two summation orders may flip where g is tiny).
+# * (d) microbatches of 2 against the batch of 4, fp32: the losses within
+#   1e-5 relative (a mean of two means of equal counts); each microbatch's
+#   gradient is rounded to bf16 and the two are summed in bf16, so
+#   elementwise |G_mb - G| <= (2u + u^2) (|g1| + |g2|) / 2 with u = 2**-8,
+#   and the norms |‖G_mb‖ - ‖G‖| <= (2u + u^2) (‖g1‖ + ‖g2‖) / 2 (plus
+#   1e-5 ‖G‖ for the fp32 sums' order), g1 and g2 each half's gradient
+#   (their norms measured by a step on each half alone).
+# * (f) a resumed run against an uninterrupted one on the card: the loss,
+#   ce and grad_norm of steps 3-5 within 1e-3 relative, lr equal. Card runs
+#   are not bit-reproducible (the embedding's backward adds rows with
+#   atomics), and a last-bit gradient difference moves a bf16 param by an
+#   ulp; on the CPU the same is bit for bit (tests/test_torch_loop.py).
+TRAIN_MB_U = 2.0 ** -8
+TRAIN_RESTART_REL = 1e-3
+
+
+def leaf_digests(torch, tree, chunk=1 << 24):
+    """One int64 per leaf: the wrapped sum of its 32-bit words. A leaf that
+    did not change keeps its digest; a changed one could keep it only if
+    its changes cancel exactly, and then the check below fails (it never
+    passes a leaf that did not move)."""
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        if t.dtype != torch.float32:
+            raise TypeError(f"digest of {t.dtype}")
+        words = t.reshape(-1).view(torch.int32)
+        s = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, words.numel(), chunk):
+            s += torch.sum(words[i:i + chunk], dtype=torch.int64)
+        out.append(s)
+    return torch.stack(out).tolist() if out else []
+
+
+def masters_moved(torch, before, state):
+    after = leaf_digests(torch, state.opt.master)
+    return sum(a != b for a, b in zip(before, after)), len(after)
+
+
+def train_batch_fn(torch, cfg, batch, seq, dev, seed=0):
+    """(step) -> batch on ``dev``: ``token_batch_fn`` for a token frontend;
+    bf16 frames and labels from a generator seeded by the step for a stub
+    frontend (as ``repro_torch.launch.train`` draws them)."""
+    from repro_torch.launch.train import _batch_fn
+    from repro_torch.data.tokens import token_batch_fn
+    if cfg.frontend == "token":
+        bf_np = token_batch_fn(batch=batch, seq=seq, vocab=cfg.vocab,
+                               seed=seed)
+        return lambda s: {k: torch.from_numpy(v).to(dev)
+                          for k, v in bf_np(s).items()}
+    return _batch_fn(cfg, batch, seq, dev)
+
+
+def train_flops(cfg, params, tokens, B, T):
+    """Model FLOPs of one step: 6 x the matmul parameters (the layers'
+    stacked weight matrices and the head) x tokens, plus causal attention
+    (QK^T and PV over T(T+1)/2 pairs a sequence) x 3 (forward, backward);
+    remat's second forward is not counted."""
+    from repro_torch.optim.adamw import tree_leaves
+    mm = sum(t.numel() for t in tree_leaves(params["layers"]) if t.dim() >= 3)
+    mm += params["head"].numel() if "head" in params else \
+        params["embed"].numel()
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.d_head * B * T * (T + 1) // 2
+    return 6 * mm * tokens + 3 * attn, mm
+
+
+def step_profile(torch, step, state, batch, params):
+    """One train step under torch.profiler (shapes recorded): kernel
+    launches, device time by op, the device-idle share over the step's own
+    traced span, and the check that no stacked leaf's gradient came from a
+    per-layer fill of the whole leaf (a zero/fill of a stacked leaf's
+    shape, or a select_backward of one layer's slice of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim.adamw import tree_leaves
+    stacked = [t for t in tree_leaves(params["layers"]) if t.numel() >= 1 << 20]
+    whole = {tuple(t.shape) for t in stacked}
+    slices = {tuple(t.shape[1:]) for t in stacked}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with record_function("train_step"):
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    bad = [(e.name, e.input_shapes[0]) for e in events
+           if e.device_type == DeviceType.CPU and e.input_shapes
+           and ((e.name in ("aten::fill_", "aten::zero_")
+                 and tuple(e.input_shapes[0]) in whole)
+                or (e.name == "aten::select_backward"
+                    and tuple(e.input_shapes[0]) in slices))]
+    if bad:
+        raise AssertionError(f"per-layer whole-leaf gradient fills: {bad[:4]}")
+    stacks = sum(1 for e in events if e.device_type == DeviceType.CPU
+                 and e.name == "aten::stack")
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != "train_step"]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    # device time by the op that launched it; CUPTI's "Command Buffer Full"
+    # marks the host waiting on a full launch queue, not an op
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0
+                  and e.key != "Command Buffer Full"), reverse=True)
+    full = [e for e in prof.key_averages() if e.key == "Command Buffer Full"]
+    span = trace_span(prof, "train_step")
+    out = {"launches": len(kernels), "stacks": stacks, "busy_ms": busy,
+           "ops": [(k, ms_, n) for ms_, n, k in ops[:5]],
+           "queue_full": full[0].count if full else 0}
+    if span is not None and busy > 0:
+        out["span_ms"], out["busy_in_span_ms"] = span
+        out["idle_share"] = 1 - span[1] / span[0]
+    return state, m, out
+
+
+def lm_train_full(torch, lm, dev, card_line):
+    """(a): phi3-mini-3.8b uncut, 6 steps through train_loop; timing,
+    model-FLOPs share, adamw_update alone, peak memory, one profiled
+    step. Returns (record, state, step) for (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import adamw_update, tree_map
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    n = lm.param_count(state.params)
+    if n != lm.config_param_count(cfg):
+        raise AssertionError(f"{TRAIN_ARCH}: {n} parameters drawn")
+    init_s = time.perf_counter() - t0
+    state_gb = n * (2 + 12) / 1e9
+    log(f"phase 19 (a) {TRAIN_ARCH} at full width and depth "
+        f"({cfg.n_layers} layers): {n} parameters; train state (bf16 "
+        f"params + fp32 m, v, master) {state_gb:.2f} GB on the card in "
+        f"{init_s:.1f}s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           loss_chunk=TRAIN_CHUNK, q_chunk=TRAIN_CHUNK,
+                           kv_chunk=TRAIN_CHUNK)
+    bf = train_batch_fn(torch, cfg, TRAIN_B, TRAIN_T, dev)
+    before = leaf_digests(torch, state.opt.master)
+    marks, events, moved = [], [], []
+
+    def timed(st, batch):
+        marks.append(time.perf_counter())
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        st, m = step(st, batch)
+        e1.record()
+        events.append((e0, e1))
+        if len(events) == 1:
+            moved.append(masters_moved(torch, before, st))
+        return st, m
+
+    out = train_loop(state=state, train_step=timed, batch_fn=bf,
+                     n_steps=TRAIN_STEPS, log_every=1,
+                     log_fn=lambda s: log(f"phase 19 (a) {s}"))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    state = out["state"]
+    losses = [h["loss"] for h in out["history"]]
+    if not all(math.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"phi3 losses {losses}")
+    k, nl = moved[0]
+    if k != nl:
+        raise AssertionError(f"only {k}/{nl} master leaves moved at step 1")
+    ms = sum(a.elapsed_time(b) for a, b in events[TRAIN_TIMED:]) \
+        / (TRAIN_STEPS - TRAIN_TIMED)
+    wall = (marks[-1] - marks[TRAIN_TIMED]) * 1e3 / (TRAIN_STEPS - TRAIN_TIMED)
+    tokens = TRAIN_B * TRAIN_T
+    flops, mm = train_flops(cfg, state.params, tokens, TRAIN_B, TRAIN_T)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    rec = {"params": n, "losses": losses, "ms": ms, "wall_ms": wall,
+           "tokens_per_s": tokens / (ms / 1e3), "flops": flops,
+           "flops_bound_ms": bound_ms, "mfu": bound_ms / ms,
+           "first_step_ms": events[0][0].elapsed_time(events[0][1])}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 19 (a) losses {['%.4f' % x for x in losses]}; every one of "
+        f"{nl} master leaves moved at step 1; peak device memory over the "
+        f"steps {rec['peak_gib']:.2f} GiB "
+        f"({rec['peak_gib'] * 2**30 / 1e9:.2f} GB; the state alone "
+        f"{state_gb:.2f} GB, bf16 grads {n * 2 / 1e9:.2f} GB)")
+    log(f"phase 19 (a) train step B={TRAIN_B} T={TRAIN_T}: {ms:.3f} ms "
+        f"(CUDA events, steps 3-{TRAIN_STEPS}; host clock {wall:.3f} ms; "
+        f"step 1 {rec['first_step_ms']:.3f} ms), {rec['tokens_per_s']:.1f} "
+        f"tokens/s; model FLOPs {flops / 1e12:.2f} TFLOP (6 x {mm} matmul "
+        f"parameters x {tokens} tokens + causal attention) = "
+        f"{bound_ms:.3f} ms at the dense bf16 peak: {rec['mfu'] * 100:.1f}% "
+        f"of it; {card_line}")
+    # the optimizer alone, on constant bf16 gradients (the arithmetic does
+    # not depend on the values)
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3), state.params)
+    opt = {"st": state}
+
+    def update():
+        _, o, _ = adamw_update(grads, opt["st"].opt, opt["st"].params,
+                               lr=TRAIN_LR)
+        opt["st"] = opt["st"]._replace(opt=o)
+
+    update()
+    torch.cuda.synchronize()
+    rec["adamw_ms"] = cuda_ms(update, 3)
+    rec["adamw_bound_ms"] = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+    state = opt["st"]
+    del grads, opt
+    log(f"phase 19 (a) adamw_update alone: {rec['adamw_ms']:.3f} ms (CUDA "
+        f"events over 3), bytes bound {rec['adamw_bound_ms']:.3f} ms "
+        f"({ADAMW_BYTES} B x {n} parameters = "
+        f"{ADAMW_BYTES * n / 1e9:.1f} GB), "
+        f"{rec['adamw_bound_ms'] / rec['adamw_ms'] * 100:.1f}% of it; "
+        f"{card_line}")
+    state, _, prof = step_profile(torch, step, state, bf(TRAIN_STEPS),
+                                  state.params)
+    rec["profile"] = prof
+    rec["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if "idle_share" not in prof:
+        log("phase 19 (a) profile: no device time recorded; not measured")
+    else:
+        rec["idle_unprofiled"] = 1 - prof["busy_ms"] / ms
+        log(f"phase 19 (a) profile of one step: {prof['launches']} kernel "
+            f"launches, {prof['busy_ms']:.3f} ms of kernels; over the "
+            f"step's traced span of {prof['span_ms']:.3f} ms (kernels busy "
+            f"{prof['busy_in_span_ms']:.3f} ms of it) the device idles "
+            f"{prof['idle_share'] * 100:.1f}% (the profiler's launch cost "
+            f"stretches the host; the host waited on a full launch queue "
+            f"{prof['queue_full']} times); against the unprofiled step's "
+            f"{ms:.3f} ms by CUDA events the kernels leave "
+            f"{rec['idle_unprofiled'] * 100:.1f}% idle; "
+            f"{prof['stacks']} aten::stack (the stacked leaves' gradients), "
+            f"no whole-leaf fill")
+        for key, ms_, cnt in prof["ops"]:
+            log(f"phase 19 (a) profile by op: {ms_:9.3f} ms "
+                f"{ms_ / prof['busy_ms'] * 100:5.1f}%  x{cnt:<5d} {key[:40]}")
+    return rec, state, step
+
+
+def lm_train_long(torch, state_step, dev, card_line):
+    """(b): one step at T=4096, B=1 (after a warm-up step)."""
+    from repro_torch.configs import get_config
+    state, step = state_step
+    cfg = get_config(TRAIN_ARCH)
+    bf = train_batch_fn(torch, cfg, 1, TRAIN_LONG_T, dev, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, bf(0))
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    state, m = step(state, bf(1))
+    e1.record()
+    torch.cuda.synchronize()
+    loss = float(m["loss"])
+    if not (math.isfinite(loss) and loss > 0):
+        raise AssertionError(f"T={TRAIN_LONG_T} loss {loss}")
+    rec = {"ms": e0.elapsed_time(e1), "loss": loss,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"phase 19 (b) one step at B=1, T={TRAIN_LONG_T}: {rec['ms']:.3f} ms "
+        f"(CUDA events), loss {loss:.4f}, peak device memory "
+        f"{rec['peak_gib']:.2f} GiB; {card_line}")
+    return rec
+
+
+def lm_grads(torch, lm, cfg, params, batch, chunk):
+    """Each leaf's gradient of lm_loss (remat), in tree order."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = tree_leaves(live)
+    loss, _ = lm.lm_loss(cfg, live, batch["inputs"], batch["labels"],
+                         loss_chunk=chunk, q_chunk=chunk, kv_chunk=chunk)
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
+def lm_train_cut(torch, lm, dev, card_line):
+    """(c) and (d): phi3 at full width cut to 2 layers, fp32 copies of its
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    from repro_torch.train.step import TrainState, make_train_step
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CUT_LAYERS)
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    n = lm.param_count(p32)
+    kw = dict(peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    # (c): one step on the card, one on the CPU, from the same weights
+    T = TRAIN_CPU_T
+    batch = train_batch_fn(torch, cfg, TRAIN_CPU_B, T, dev, seed=1)(0)
+    g = [x.abs() for x in lm_grads(torch, lm, cfg, p32, batch, T)]
+    step = make_train_step(cfg, loss_chunk=T, q_chunk=T, kv_chunk=T, **kw)
+    pc = tree_map(torch.clone, p32)
+    card, mc = step(TrainState(pc, adamw_init(pc)), batch)
+    pcpu = tree_map(lambda t: t.cpu(), p32)
+    t0 = time.perf_counter()
+    cpu, mcpu = step(TrainState(pcpu, adamw_init(pcpu)),
+                     {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rec_c = {"params": n, "cpu_s": cpu_s}
+    for key in ("loss", "grad_norm"):
+        a, b = float(mc[key]), float(mcpu[key])
+        rec_c[key] = abs(a - b) / abs(b)
+        if rec_c[key] > 1e-5:
+            raise AssertionError(f"(c) {key}: card {a}, CPU {b}")
+    lr = float(mcpu["lr"])
+    worst_sure = worst_all = 0.0
+    for w, want, gl in zip(tree_leaves(card.opt.master),
+                           tree_leaves(cpu.opt.master), g):
+        d = (w.cpu() - want).abs()
+        sure = (gl >= 1e-3 * gl.max()).cpu()
+        worst_all = max(worst_all, float(d.max()) / (2.2 * lr))
+        if bool(sure.any()):
+            r = d[sure] / (1e-6 + 1e-5 * want.abs()[sure])
+            worst_sure = max(worst_sure, float(r.max()))
+    rec_c["master_all"], rec_c["master_sure"] = worst_all, worst_sure
+    if worst_all > 1 or worst_sure > 1:
+        raise AssertionError(f"(c) master outside its bound: {rec_c}")
+    del card, cpu, pc, pcpu, g
+    log(f"phase 19 (c) {TRAIN_ARCH} cut to {TRAIN_CUT_LAYERS} layers ({n} "
+        f"parameters), fp32, TF32 off, one step B={TRAIN_CPU_B} T={T}, card "
+        f"vs CPU: loss {rec_c['loss']:.2e}, grad_norm "
+        f"{rec_c['grad_norm']:.2e} relative (bound 1e-5); master "
+        f"{worst_sure:.3f} of 1e-6 + 1e-5|w| where |g| >= 1e-3 max|g|, "
+        f"{worst_all:.3f} of 2.2 lr everywhere; the CPU step {cpu_s:.1f}s")
+    # (d): microbatches of 2 against the batch of 4
+    T = TRAIN_T
+    batch = train_batch_fn(torch, cfg, TRAIN_MB_B, T, dev, seed=2)(0)
+    half = TRAIN_MB_B // TRAIN_MB
+    runs = {}
+    for name, mb, sl in (("batch", None, slice(None)),
+                         ("microbatch", TRAIN_MB, slice(None)),
+                         ("g1", None, slice(0, half)),
+                         ("g2", None, slice(half, None))):
+        pc = tree_map(torch.clone, p32)
+        st = make_train_step(cfg, microbatch=mb, loss_chunk=T, q_chunk=T,
+                             kv_chunk=T, **kw)
+        _, m = st(TrainState(pc, adamw_init(pc)),
+                  {k: v[sl] for k, v in batch.items()})
+        runs[name] = {k: float(v) for k, v in m.items()}
+        del pc
+    del p32
+    G, Gm = runs["batch"]["grad_norm"], runs["microbatch"]["grad_norm"]
+    u = TRAIN_MB_U
+    bound = (2 * u + u * u) * (runs["g1"]["grad_norm"]
+                               + runs["g2"]["grad_norm"]) / 2 + 1e-5 * G
+    loss_rel = abs(runs["microbatch"]["loss"] - runs["batch"]["loss"]) \
+        / abs(runs["batch"]["loss"])
+    rec_d = {"loss_rel": loss_rel, "grad_norm_diff": abs(Gm - G),
+             "grad_norm_bound": bound, "runs": runs}
+    if loss_rel > 1e-5 or abs(Gm - G) > bound:
+        raise AssertionError(f"(d) microbatching: {rec_d}")
+    log(f"phase 19 (d) microbatch={TRAIN_MB} vs none at B={TRAIN_MB_B} "
+        f"T={T}, fp32: loss {loss_rel:.2e} relative (bound 1e-5); grad_norm "
+        f"{Gm:.6f} vs {G:.6f}, |diff| {abs(Gm - G):.3e} (bound {bound:.3e}: "
+        f"bf16 sums of the halves' gradients, norms "
+        f"{runs['g1']['grad_norm']:.4f} and {runs['g2']['grad_norm']:.4f})")
+    return rec_c, rec_d
+
+
+def lm_train_arch(torch, lm, arch, dev, card_line):
+    """(e): one bf16 train step of ``arch`` at full width and LM_CUTS'
+    depth, B=1, T=TRAIN_ARCH_T."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+    cut, desc = LM_CUTS[arch]
+    desc = desc.replace(", prefill only", "")     # phase 18's serving note
+    cfg = get_config(arch).replace(**cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    n = lm.param_count(state.params)
+    p_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state.params))
+    need = 2 * p_bytes + 12 * n          # params, grads, m, v, master
+    T = TRAIN_ARCH_T
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           loss_chunk=T, q_chunk=T, kv_chunk=T)
+    batch = train_batch_fn(torch, cfg, 1, T, dev, seed=3)(0)
+    before = leaf_digests(torch, state.opt.master)
+    try:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    except torch.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"{arch} cut to {desc}: {n} parameters, state + grads "
+            f"{need / 1e9:.2f} GB, out of device memory after a peak of "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB") from e
+    loss = float(m["loss"])
+    k, nl = masters_moved(torch, before, state)
+    if not (math.isfinite(loss) and loss > 0) or k != nl:
+        raise AssertionError(f"{arch}: loss {loss}, {k}/{nl} master leaves "
+                             f"moved")
+    rec = {"params": n, "cut": desc, "loss": loss, "state_grads_gb": need / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "s": time.perf_counter() - t0}
+    log(f"phase 19 (e) {arch} cut to {desc}: {n} parameters, one step B=1 "
+        f"T={T}: loss {loss:.4f}, all {nl} master leaves moved; state + "
+        f"grads {rec['state_grads_gb']:.2f} GB, peak {rec['peak_gb']:.2f} GB "
+        f"({rec['s']:.1f}s); {card_line}")
+    return rec
+
+
+def lm_train_restart(torch, dev, card_line):
+    """(f): train_loop on reduced phi3 with a CheckpointManager: crash at
+    step 3, resume; the resumed history against an uninterrupted run."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = get_reduced(TRAIN_ARCH)
+    r = TRAIN_RESTART
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           loss_chunk=r["seq"], q_chunk=r["seq"],
+                           kv_chunk=r["seq"])
+    bf = train_batch_fn(torch, cfg, r["batch"], r["seq"], dev)
+
+    def fresh():
+        return init_train_state(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+
+    def quiet(_):
+        return None
+
+    ref = train_loop(state=fresh(), train_step=step, batch_fn=bf,
+                     n_steps=r["steps"], log_every=100, log_fn=quiet)
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, keep=2)
+        try:
+            train_loop(state=fresh(), train_step=step, batch_fn=bf,
+                       n_steps=r["steps"], ckpt=ck, ckpt_every=r["crash_at"],
+                       crash_at=r["crash_at"], log_every=100, log_fn=quiet)
+            raise AssertionError("crash_at did not raise")
+        except RuntimeError as e:       # the simulated failure, nothing else
+            if "simulated failure" not in str(e):
+                raise
+        if ck.latest_step() != r["crash_at"]:
+            raise AssertionError(f"latest checkpoint {ck.latest_step()}")
+        logs = []
+        out = train_loop(state=fresh(), train_step=step, batch_fn=bf,
+                         n_steps=r["steps"], ckpt=ck,
+                         ckpt_every=r["crash_at"], log_every=100,
+                         log_fn=logs.append)
+    if f"[loop] resumed from checkpoint step {r['crash_at']}" not in logs:
+        raise AssertionError(f"no resume: {logs}")
+    want = ref["history"][r["crash_at"]:]
+    got = out["history"]
+    worst = 0.0
+    for h, w in zip(got, want):
+        if h["lr"] != w["lr"]:
+            raise AssertionError(f"lr {h['lr']} vs {w['lr']}")
+        for k in ("loss", "ce", "grad_norm"):
+            worst = max(worst, abs(h[k] - w[k]) / abs(w[k]))
+    if len(got) != len(want) or worst > TRAIN_RESTART_REL:
+        raise AssertionError(f"resumed history off by {worst}: {got} vs "
+                             f"{want}")
+    rec = {"worst_rel": worst, "bit_equal": got == want,
+           "losses": [h["loss"] for h in got]}
+    log(f"phase 19 (f) {cfg.name} crash at step {r['crash_at']} and resume: "
+        f"steps {r['crash_at']}-{r['steps'] - 1} within {worst:.2e} of the "
+        f"uninterrupted run (bound {TRAIN_RESTART_REL}; bit-equal: "
+        f"{rec['bit_equal']})")
+    return rec
+
+
+def phase_train_lm(torch, card_line, device="cuda"):
+    """Phase 19: slice J's training path (see the module docstring)."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    before = k_launches()
+    rec = {}
+    rec["full"], state, step = lm_train_full(torch, lm, dev, card_line)
+    rec["long"] = lm_train_long(torch, (state, step), dev, card_line)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"], rec["microbatch"] = lm_train_cut(torch, lm, dev,
+                                                         card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["archs"] = {}
+    for arch in LM_CUTS:
+        rec["archs"][arch] = lm_train_arch(torch, lm, arch, dev, card_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["restart"] = lm_train_restart(torch, dev, card_line)
+    after = k_launches()
+    if after != before:
+        raise AssertionError(f"K1-K4 launched on the LM training path: "
+                             f"{before} -> {after}")
+    rec["launches"] = {k: after[k] - before[k] for k in after}
+    # the sub-phases reset the peak: the phase's is the largest of theirs
+    rec["peak_gib"] = max([rec["full"]["peak_all_gib"], rec["long"]["peak_gib"],
+                           torch.cuda.max_memory_allocated() / 2**30]
+                          + [r["peak_gb"] * 1e9 / 2**30
+                             for r in rec["archs"].values()])
+    rec["s"] = time.perf_counter() - t_phase
+    log(f"phase 19 (g) K1-K4 launches unchanged over the phase ({after}): "
+        f"none of them is on the LM training path")
+    log(f"phase 19 {rec['s']:.1f}s; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB; {card_line}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4867,8 +5426,19 @@ def main():
     del p, p32, xs, x32, metas
     gc.collect()
     torch.cuda.empty_cache()
+    lm_before = k_launches()
     phase_lm(torch, card_line)          # resets the peak
     peak = max(peak, torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mid = k_launches()
+    train_lm = phase_train_lm(torch, card_line)    # resets the peak
+    peak = max(peak, train_lm["peak_gib"] * 2**30)
+    lm_after = k_launches()
+    k4["launches_by_path"] = {"moe": k4["launches"]}
+    for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4")):
+        rec["launches_by_path"]["lm"] = lm_mid[k] - lm_before[k]
+        rec["launches_by_path"]["lm_train"] = lm_after[k] - lm_mid[k]
     log(f"peak device memory {peak / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t0:.1f}s")
     records = [k1, k2, k3, k4]

@@ -8,8 +8,9 @@
 * ``latest_step`` scans for complete checkpoints only (those with a
   ``MANIFEST.json``); a training loop restarts from there after a failure.
 
-Format: one ``arrays.npz`` per checkpoint plus a JSON manifest. Nested lists,
-tuples and dicts flatten in the leaf order of the reference package's
+Format: one ``arrays.npz`` per checkpoint plus a JSON manifest. Nested
+lists, tuples (named tuples such as a ``TrainState`` included) and dicts
+flatten in the leaf order of the reference package's
 ``jax.tree_util.tree_flatten`` (sequences in order, dict keys sorted, None
 holds no leaf), so ``a<i>`` names the same parameter in a checkpoint of
 either package, and a checkpoint written by one restores into the other.
@@ -47,6 +48,8 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, leaves) for v in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)

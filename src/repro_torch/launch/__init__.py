@@ -1,1 +1,2 @@
-"""Device layout for fleet serving (:mod:`repro_torch.launch.mesh`)."""
+"""Training meshes, fleet slot lists and the training launcher
+(:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.launch.train`)."""

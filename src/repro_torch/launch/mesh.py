@@ -1,10 +1,20 @@
-"""Slot lists for fleet graph serving.
+"""Meshes: the training meshes as axis-size mappings, and slot lists for
+fleet graph serving.
 
-The reference builds a 1-D ``jax.sharding.Mesh`` over its devices; the
-port's fleet runs over **slots**: a list of ``torch.device``s in which one
-device may appear more than once. One slot per card is the real fleet;
-several slots of one card (or of the CPU) give the placement, routing,
-sharding and replication of that many devices on one card, as the
+*Training.* The reference builds ``jax`` meshes; the port's sharding rules
+(:mod:`repro_torch.sharding`) read a mesh as a mapping of axis names to
+sizes. :func:`make_host_mesh` is ``{"data": n // model, "model": model}``
+over the visible cards (one on the CPU); :func:`make_production_mesh` is
+the reference's pod layout, ``{"data": 16, "model": 16}`` (with ``"pod":
+2`` in front across two pods). The port runs on one card: under a mapping
+of more than one device ``sharding.shard`` raises, so the production
+mapping gives specs to read, not a run.
+
+*Serving.* The reference builds a 1-D ``jax.sharding.Mesh`` over its
+devices; the port's fleet runs over **slots**: a list of ``torch.device``s
+in which one device may appear more than once. One slot per card is the
+real fleet; several slots of one card (or of the CPU) give the placement,
+routing, sharding and replication of that many devices on one card, as the
 reference's forced host device count does on the CPU. Slots that share a
 card share its SMs and memory, so they answer as a fleet of that size
 would, but are not faster than one slot. A multi-host fleet's global slots
@@ -15,13 +25,36 @@ Functions, not module-level constants, so importing never touches CUDA.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..core.plan_cache import DeviceLike, resolve_device
 
-__all__ = ["graph_mesh", "multihost_graph_mesh", "resolve_slots"]
+__all__ = ["make_production_mesh", "make_host_mesh", "graph_mesh",
+           "multihost_graph_mesh", "resolve_slots"]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh (256 chips a pod) as axis sizes;
+    ``multi_pod`` adds a leading ``"pod"`` axis of 2."""
+    return {**({"pod": 2} if multi_pod else {}), "data": 16, "model": 16}
+
+
+def make_host_mesh(model: int = 1, *,
+                   device: DeviceLike = None) -> Dict[str, int]:
+    """``{"data": n // model, "model": model}`` over the n visible cards
+    (``device`` is ``cuda`` unless the caller names another type; n is 1
+    on the CPU)."""
+    kind = resolve_device(device).type
+    n = torch.cuda.device_count() if kind == "cuda" else 1
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got {model}")
+    if n % model != 0:
+        raise ValueError(
+            f"cannot build a ({n // model}, {model}) host mesh: {n} "
+            f"available device(s) not divisible by model={model}")
+    return {"data": n // model, "model": model}
 
 
 def resolve_slots(devices: Sequence[DeviceLike]) -> List[torch.device]:

@@ -8,7 +8,12 @@ pairs ``[L/2, 2, ...]``; zamba-2 groups ``[n_groups, g, ...]`` of mamba
 layers, each followed by the shared attn+mlp block with its per-site
 LoRA), so :func:`params_from_jax` converts the reference's tree leaf by
 leaf. Each ``lax.scan`` of the reference is a Python loop over the leading
-index, on views.
+index, on views (the trunk unbinds each stacked leaf once, so a gradient
+into it is one stack in the backward).
+
+``lm_loss`` is differentiable by autograd. With ``remat`` (its default, as
+the reference's) each unit the reference wraps in ``jax.checkpoint`` runs
+under ``torch.utils.checkpoint`` and is recomputed in the backward.
 
 Decode state is updated in place: ``decode_step`` writes each layer's
 cache entry through a view of the stacked cache, and ``reset_decode_slot``
@@ -21,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.plan_cache import DeviceLike, resolve_device
@@ -336,70 +342,112 @@ def embed_inputs(cfg: ArchConfig, params, inputs) -> torch.Tensor:
     return shard(h, "batch", None, None)
 
 
+def _unstack(stack, depth: int = 1):
+    """Per-index trees of a layer-stacked tree, over its leading ``depth``
+    dims flattened (index ``i * n2 + j`` for ``[n1, n2, ...]``): one
+    ``unbind`` per leaf. A gradient into a stacked leaf is then one stack in
+    the backward; a view ``t[i]`` a layer (``_at``) would give each layer's
+    backward a zero-filled tensor of the whole leaf to add into it."""
+    parts = _tree_map(lambda t: t.flatten(0, depth - 1).unbind(0), stack)
+    n = len(_leaves(parts)[0])
+    return [_tree_map(lambda p: p[i], parts) for i in range(n)]
+
+
 def _trunk(cfg: ArchConfig, params, h, *, q_chunk, kv_chunk, ssd_chunk,
-           caches: Optional[Dict[str, Any]] = None):
+           remat: bool = False, caches: Optional[Dict[str, Any]] = None):
     """[B, T, D] -> ([B, T, D] before the final norm, aux). With a
-    ``caches`` dict, each layer's decode cache is stored into it."""
+    ``caches`` dict, each layer's decode cache is stored into it (never
+    under remat). With ``remat`` and grad enabled, each unit the reference
+    wraps in ``jax.checkpoint`` (one dense or MoE layer, gemma-2's
+    local/global pair, one mamba layer, one zamba-2 group with its shared
+    block, one tail layer) runs under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward."""
     fam = cfg.family
     keep = caches is not None
+    ckpt = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, return_kv=keep)
 
-    def dense(key, stack, lead, idx, **kw):
-        nonlocal h, aux
-        h, a, kv = _dense_block(cfg, _at(stack, idx), h, **kw, **chunks)
-        if a is not None:
-            aux = aux + a
-        if keep:
-            _put(caches, key, lead, idx, kv)
+    def unit(fn, *args):
+        if ckpt:   # nothing on the path draws randomness: no RNG stash
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
 
-    def mamba(key, stack, lead, idx):
-        nonlocal h
-        h, mc = _mamba_block(cfg, _at(stack, idx), h, chunk=ssd_chunk,
-                             return_state=keep)
-        if keep:
-            _put(caches, key, lead, idx, mc)
+    def dense(p, hh, local=False):
+        return _dense_block(cfg, p, hh, local=local, **chunks)
+
+    def pair(p0, p1, hh):
+        hh, _, kv0 = dense(p0, hh, True)
+        hh, _, kv1 = dense(p1, hh, False)
+        return hh, kv0, kv1
+
+    def mamba(p, hh):
+        return _mamba_block(cfg, p, hh, chunk=ssd_chunk, return_state=keep)
+
+    def group(ps, shared, lora, hh):
+        mcs = []
+        for p in ps:
+            hh, mc = mamba(p, hh)
+            mcs.append(mc)
+        hh, _, kv = dense(_shared_params(shared, lora), hh)
+        return hh, mcs, kv
 
     if fam in ("dense", "encoder", "moe"):
         if "dense_layers" in params:
-            nd = params["dense_layers"]["ln1"]["w"].shape[0]
-            for i in range(nd):
-                dense("kv_dense", params["dense_layers"], (nd,), i)
-        layers = params["layers"]
-        n = layers["ln1"]["w"].shape[0]
+            layers = _unstack(params["dense_layers"])
+            for i, lp in enumerate(layers):
+                h, _, kv = unit(dense, lp, h)
+                if keep:
+                    _put(caches, "kv_dense", (len(layers),), i, kv)
         if cfg.local_global_period == 2:
+            layers = _unstack(params["layers"], 2)
+            n = len(layers) // 2
             for i in range(n):
-                for j in (0, 1):
-                    dense("kv", layers, (n, 2), (i, j), local=(j == 0))
+                h, kv0, kv1 = unit(pair, layers[2 * i], layers[2 * i + 1], h)
+                if keep:
+                    _put(caches, "kv", (n, 2), (i, 0), kv0)
+                    _put(caches, "kv", (n, 2), (i, 1), kv1)
         else:
-            for i in range(n):
-                dense("kv", layers, (n,), i)
+            layers = _unstack(params["layers"])
+            for i, lp in enumerate(layers):
+                h, a, kv = unit(dense, lp, h)
+                if a is not None:
+                    aux = aux + a
+                if keep:
+                    _put(caches, "kv", (len(layers),), i, kv)
     elif fam == "ssm":
-        n = params["layers"]["ln1"]["w"].shape[0]
-        for i in range(n):
-            mamba("mamba", params["layers"], (n,), i)
+        layers = _unstack(params["layers"])
+        for i, lp in enumerate(layers):
+            h, mc = unit(mamba, lp, h)
+            if keep:
+                _put(caches, "mamba", (len(layers),), i, mc)
     elif fam == "hybrid":
         n_groups, gs, tail = _hybrid_counts(cfg)
+        layers = _unstack(params["layers"], 2)
+        loras = _unstack(params["lora"])
         for gi in range(n_groups):
-            for j in range(gs):
-                mamba("mamba", params["layers"], (n_groups, gs), (gi, j))
-            sp = _shared_params(params["shared"], _at(params["lora"], gi))
-            h, _, kv = _dense_block(cfg, sp, h, **chunks)
+            h, mcs, kv = unit(group, layers[gi * gs:(gi + 1) * gs],
+                              params["shared"], loras[gi], h)
             if keep:
+                for j, mc in enumerate(mcs):
+                    _put(caches, "mamba", (n_groups, gs), (gi, j), mc)
                 _put(caches, "kv", (n_groups,), gi, kv)
         if "tail" in params:
-            for i in range(tail):
-                mamba("mamba_tail", params["tail"], (tail,), i)
+            for i, lp in enumerate(_unstack(params["tail"])):
+                h, mc = unit(mamba, lp, h)
+                if keep:
+                    _put(caches, "mamba_tail", (tail,), i, mc)
     else:
         raise ValueError(fam)
     return h, aux
 
 
-def forward_trunk(cfg: ArchConfig, params, h, *, q_chunk=512, kv_chunk=512,
-                  ssd_chunk=128):
+def forward_trunk(cfg: ArchConfig, params, h, *, remat=True, q_chunk=512,
+                  kv_chunk=512, ssd_chunk=128):
     """[B, T, D] -> ([B, T, D] after the final norm, aux_loss)."""
     h, aux = _trunk(cfg, params, h, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                    ssd_chunk=ssd_chunk)
+                    ssd_chunk=ssd_chunk, remat=remat)
     return _norm(cfg, params["final_norm"], h), aux
 
 
@@ -422,22 +470,26 @@ def lm_logits(cfg: ArchConfig, params, h) -> torch.Tensor:
                            + ["model"]))
 
 
-def lm_forward(cfg: ArchConfig, params, inputs, **kw) -> torch.Tensor:
+def lm_forward(cfg: ArchConfig, params, inputs, *, remat=False,
+               **kw) -> torch.Tensor:
     """Full logits [B, T, V] — tests / small models only."""
     h = embed_inputs(cfg, params, inputs)
-    h, _ = forward_trunk(cfg, params, h, **kw)
+    h, _ = forward_trunk(cfg, params, h, remat=remat, **kw)
     return lm_logits(cfg, params, h)
 
 
-def lm_loss(cfg: ArchConfig, params, inputs, labels, *, loss_chunk=512,
-            aux_weight=0.01, **kw):
-    """Next-token CE (its value; the backward is the training slice's),
-    seq-chunked so [B, Tc, V] logits never exceed a chunk.
+def lm_loss(cfg: ArchConfig, params, inputs, labels, *, remat=True,
+            loss_chunk=512, aux_weight=0.01, **kw):
+    """Next-token CE, seq-chunked so [B, Tc, V] logits never exceed a
+    chunk; differentiable by autograd (``train.step`` takes its gradients).
+    With ``remat`` the trunk's layers are recomputed in the backward; the
+    loss-chunk loop is never checkpointed, as the reference's chunk scan
+    is not.
 
     labels: int [B, T], -1 = masked. Returns (loss, {"ce", "aux"}).
     """
     h = embed_inputs(cfg, params, inputs)
-    h, aux = forward_trunk(cfg, params, h, **kw)
+    h, aux = forward_trunk(cfg, params, h, remat=remat, **kw)
     T = h.shape[1]
     W = _head_weights(cfg, params)
     c = min(loss_chunk, T)
@@ -596,7 +648,7 @@ def prefill_forward(cfg: ArchConfig, params, inputs, *, q_chunk=512,
     h = embed_inputs(cfg, params, inputs)
     chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
     if cfg.family == "encoder":
-        hh, _ = forward_trunk(cfg, params, h, **chunks)
+        hh, _ = forward_trunk(cfg, params, h, remat=False, **chunks)
         return lm_logits(cfg, params, hh), None
     caches: Dict[str, Any] = {}
     h, _ = _trunk(cfg, params, h, caches=caches, **chunks)

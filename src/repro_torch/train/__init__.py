@@ -1,1 +1,2 @@
-from .step import make_serve_step  # noqa: F401
+from .step import make_train_step, make_serve_step, TrainState  # noqa: F401
+from .loop import train_loop  # noqa: F401

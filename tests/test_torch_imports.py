@@ -56,7 +56,8 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 "statics.future_rules", "statics.analyzer",
                 "statics.witness", "models.attention", "models.ssm",
                 "models.lm", "sharding.rules", "train.step",
-                "serve.engine"):
+                "serve.engine", "optim.adamw", "train.loop", "data.tokens",
+                "launch.train"):
         assert f"repro_torch.{mod}" in have
         ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
         assert os.path.exists(ref_path), ref_path

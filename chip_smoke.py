@@ -297,6 +297,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``train_loop`` with a ``CheckpointManager``: crash at step 3, resume,
    the resumed history within ``TRAIN_RESTART_REL``. (g) K1-K4's launch
    counters are the same before and after the phase.
+20. slice K's dry run against the card (after phase 19; no kernel of the
+   port is on it): (a) ``repro_torch.launch.dryrun.probe_roofline`` on the
+   meta device (the whole depth at the reference's probe chunks) and
+   ``roofline_terms`` against ``hw_for("cuda")`` for phi3-mini-3.8b at all
+   four shapes (``long_500k`` is a recorded skip), deepseek-moe-16b
+   ``train_4k`` and zamba2-7b ``decode_32k``: FLOPs, bytes, the three
+   terms, the bottleneck and ``useful_ratio`` beside the card line. (b)
+   the dry run held against the card, each step traced on ``meta`` and
+   then run on the card under the same ``CountingMode``: phase 18's decode
+   step (phi3 uncut, batch 4 and 32, max_seq 256; run inside phase 18,
+   where its weights live) and phase 19's train step (B=4, T=512, chunks
+   512; run inside phase 19, on its 53.5 GB state): FLOPs equal exactly,
+   argument bytes equal exactly the bytes of the live weights (train: the
+   whole state), cache and batch, the predicted peak within
+   ``DRYRUN_PEAK_REL`` of ``max_memory_allocated`` over the step (less
+   what the card held beside the arguments before it), and the step's
+   CUDA-event ms from phase 18 or 19 beside ``max(compute_s, memory_s)``.
+   (c) ``python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b
+   --shape decode_32k`` in a subprocess exits 0 and its record has the
+   reference's keys.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -4799,6 +4819,9 @@ def phase_lm(torch, card_line, device="cuda"):
     rec["times"] = lm_timing(torch, lm, cfg, params, dev, card_line, n)
     rec["load"] = lm_engine_load(torch, cfg, params, dev, card_line)
     rec["peak_gib_phi3"] = torch.cuda.max_memory_allocated() / 2**30
+    # phase 20 (b) resets the peak: after this phase's reading of it
+    rec["dryrun"] = dryrun_decode_check(torch, lm, cfg, params, dev,
+                                        card_line, rec["times"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4814,7 +4837,8 @@ def phase_lm(torch, card_line, device="cuda"):
     if after != before:
         raise AssertionError(f"K1-K4 launched on the LM path: {before} -> "
                              f"{after}")
-    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["peak_gib"] = max(rec["peak_gib_phi3"],
+                          torch.cuda.max_memory_allocated() / 2**30)
     rec["s"] = time.perf_counter() - t_phase
     log(f"phase 18 (d) K1-K4 launches unchanged over the phase ({after}): "
         f"none of them is on the LM path")
@@ -5326,6 +5350,8 @@ def phase_train_lm(torch, card_line, device="cuda"):
     before = k_launches()
     rec = {}
     rec["full"], state, step = lm_train_full(torch, lm, dev, card_line)
+    rec["dryrun"] = dryrun_train_check(torch, state, dev, card_line,
+                                       rec["full"]["ms"])
     rec["long"] = lm_train_long(torch, (state, step), dev, card_line)
     del state, step
     gc.collect()
@@ -5347,6 +5373,7 @@ def phase_train_lm(torch, card_line, device="cuda"):
     rec["launches"] = {k: after[k] - before[k] for k in after}
     # the sub-phases reset the peak: the phase's is the largest of theirs
     rec["peak_gib"] = max([rec["full"]["peak_all_gib"], rec["long"]["peak_gib"],
+                           rec["dryrun"]["card_max_allocated"] / 2**30,
                            torch.cuda.max_memory_allocated() / 2**30]
                           + [r["peak_gb"] * 1e9 / 2**30
                              for r in rec["archs"].values()])
@@ -5355,6 +5382,193 @@ def phase_train_lm(torch, card_line, device="cuda"):
         f"none of them is on the LM training path")
     log(f"phase 19 {rec['s']:.1f}s; peak device memory "
         f"{rec['peak_gib']:.2f} GiB; {card_line}")
+    return rec
+
+
+# ------------------------------------------------------------ slice K
+DRYRUN_PEAK_REL = 0.10       # (b): predicted peak against the card's
+DRYRUN_CELLS = [("phi3-mini-3.8b", s) for s in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("deepseek-moe-16b", "train_4k"), ("zamba2-7b", "decode_32k")]
+DRYRUN_CLI = ["--arch", "phi3-mini-3.8b", "--shape", "decode_32k"]   # (c)
+DRYRUN_OUT = os.path.join(ROOT, "chiprun_out", "dryrun_torch.json")
+
+
+def card_step_peak(torch, base, counts):
+    """The card's peak over a counted step in the tracker's terms: the
+    allocator's peak less what the card held beside the step's arguments
+    (``base`` is ``memory_allocated()`` just before the step)."""
+    return torch.cuda.max_memory_allocated() - base + counts.argument_bytes
+
+
+def dryrun_held(torch, label, cfg, shape, chunks, args, ms, card_line):
+    """Phase 20 (b), one step: traced on ``meta``, then the same step on
+    the card's ``args`` under the same counting mode; FLOPs and argument
+    bytes equal, the peak within DRYRUN_PEAK_REL; the measured ``ms``
+    beside the roofline's max(compute_s, memory_s)."""
+    from repro_torch.analysis.counters import storage_bytes
+    from repro_torch.analysis.roofline import hw_for
+    from repro_torch.launch import dryrun as D
+    pred, trace_s = D.trace_cell(cfg, shape, chunks=chunks)
+    fn, _ = D.build_cell(cfg, shape, chunks=chunks)
+    live = storage_bytes(args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = D.run_counted(fn, args, shape.kind)
+    torch.cuda.synchronize()
+    peak = card_step_peak(torch, base, card)
+    rl = D.cost_roofline(D.cost_vector(pred), hw=hw_for("cuda"))
+    by = "operations" if rl.compute_s >= rl.memory_s else "bytes"
+    bound_ms = max(rl.compute_s, rl.memory_s) * 1e3
+    rec = {"label": label, "flops": pred.flops, "card_flops": card.flops,
+           "argument_bytes": pred.argument_bytes, "live_bytes": live,
+           "card_argument_bytes": card.argument_bytes,
+           "peak": pred.peak_live_bytes, "card_peak": peak,
+           "card_max_allocated": peak + base - card.argument_bytes,
+           "bytes": pred.bytes, "card_bytes": card.bytes,
+           "trace_s": trace_s, "card_counted_s": card.seconds,
+           "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+           "share": bound_ms / ms}
+    log(f"phase 20 (b) {label}: FLOPs {pred.flops} predicted on meta "
+        f"(trace {trace_s:.1f}s), {card.flops} counted on the card; "
+        f"argument bytes {pred.argument_bytes} predicted, {live} live on "
+        f"the card ({card.argument_bytes} counted there); peak "
+        f"{pred.peak_live_bytes} B ({pred.peak_live_bytes / 2**30:.3f} GiB) "
+        f"predicted, {peak} B on the card (max_memory_allocated "
+        f"{rec['card_max_allocated']} B less {base - card.argument_bytes} "
+        f"B held beside the arguments; the tracker counted "
+        f"{card.peak_live_bytes} B there), "
+        f"{(pred.peak_live_bytes / peak - 1) * 100:+.4f}%; "
+        f"eager bytes {pred.bytes:.4e} predicted, {card.bytes:.4e} on the "
+        f"card; {card_line}")
+    log(f"phase 20 (b) {label}: {ms:.3f} ms (CUDA events) against "
+        f"max(compute {rl.compute_s * 1e3:.3f}, memory "
+        f"{rl.memory_s * 1e3:.3f}) = {bound_ms:.3f} ms ({by}; the eager "
+        f"program's op-by-op bytes): {rec['share'] * 100:.1f}% of the "
+        f"roofline; {card_line}")
+    if card.flops != pred.flops:
+        raise AssertionError(f"{label}: FLOPs {card.flops} on the card, "
+                             f"{pred.flops} predicted")
+    if not pred.argument_bytes == card.argument_bytes == live:
+        raise AssertionError(f"{label}: argument bytes {pred.argument_bytes}"
+                             f" predicted, {card.argument_bytes} counted, "
+                             f"{live} live")
+    if abs(pred.peak_live_bytes - peak) > DRYRUN_PEAK_REL * peak:
+        raise AssertionError(f"{label}: peak {pred.peak_live_bytes} "
+                             f"predicted, {peak} on the card")
+    return rec
+
+
+def dryrun_decode_check(torch, lm, cfg, params, dev, card_line, times):
+    """Phase 20 (b) on phase 18's decode steps, at phase 18's weights."""
+    from repro_torch.configs.base import ShapeConfig
+    out = []
+    for B in LM_TIMED_BATCHES:
+        st = lm.init_decode_state(cfg, B, LM_MAX_SEQ, device=dev)
+        st = st._replace(pos=LM_MAX_SEQ // 2)
+        tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        shape = ShapeConfig(f"decode_b{B}", "decode", LM_MAX_SEQ, B)
+        out.append(dryrun_held(torch, f"{LM_ARCH} decode step B={B} "
+                               f"max_seq {LM_MAX_SEQ}", cfg, shape, None,
+                               (params, st, tok),
+                               times[f"decode_b{B}"]["ms"], card_line))
+        del st, tok
+    return out
+
+
+def dryrun_train_check(torch, state, dev, card_line, ms):
+    """Phase 20 (b) on phase 19's train step, on its state."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(TRAIN_ARCH)
+    # each input its own [B, T] tensor, as the specs have it (on the CPU the
+    # token batch is two views of one [B, T + 1] array; the card's copies)
+    batch = {k: v.contiguous() for k, v in train_batch_fn(
+        torch, cfg, TRAIN_B, TRAIN_T, dev)(TRAIN_STEPS).items()}
+    chunks = {"q_chunk": TRAIN_CHUNK, "kv_chunk": TRAIN_CHUNK,
+              "loss_chunk": TRAIN_CHUNK}
+    shape = ShapeConfig("train_b4", "train", TRAIN_T, TRAIN_B)
+    return dryrun_held(torch, f"{TRAIN_ARCH} train step B={TRAIN_B} "
+                       f"T={TRAIN_T}", cfg, shape, chunks, (state, batch),
+                       ms, card_line)
+
+
+def phase_dryrun(torch, card_line, held):
+    """Phase 20: slice K's dry run (see the module docstring); ``held`` are
+    (b)'s records from phases 18 and 19."""
+    from repro_torch.analysis.roofline import hw_for, model_flops_estimate
+    from repro_torch.configs import SHAPES_BY_NAME, get_config, shape_skips
+    from repro_torch.launch import dryrun as D
+    t_phase = time.perf_counter()
+    hw = hw_for("cuda")
+    log(f"phase 20 (a) roofline against {hw['name']}: data-sheet peaks "
+        f"{hw['peak_flops'] / 1e12:.1f} TFLOP/s bf16, "
+        f"{hw['hbm_bw'] / 1e12:.2f} TB/s, NVLink {hw['link_bw'] / 1e9:.0f} "
+        f"GB/s each way, at 700 W; measured card {card_line}")
+    rec = {"cells": {}, "held": held}
+    for arch, name in DRYRUN_CELLS:
+        cfg, shape = get_config(arch), SHAPES_BY_NAME[name]
+        skip = shape_skips(cfg, shape)
+        if skip:
+            rec["cells"][f"{arch}:{name}"] = {"skipped": skip}
+            log(f"phase 20 (a) {arch} x {name}: skipped ({skip})")
+            continue
+        t0 = time.perf_counter()
+        cost = D.probe_roofline(cfg, shape)
+        tokens = shape.global_batch * (shape.seq_len if shape.kind in
+                                       ("train", "prefill") else 1)
+        mf = model_flops_estimate(D.active_param_count(cfg), tokens,
+                                  "train" if shape.kind == "train"
+                                  else "infer")
+        rl = D.cost_roofline(cost, model_flops=mf, hw=hw)
+        rec["cells"][f"{arch}:{name}"] = {**rl.to_row(),
+                                          "s": time.perf_counter() - t0}
+        if not (rl.flops > 0 and rl.bytes_hbm > 0 and rl.collective_s == 0
+                and 0 < rl.useful_ratio <= 1):
+            raise AssertionError(f"{arch} x {name}: {rl}")
+        log(f"phase 20 (a) {arch} x {name} (whole depth, probe chunks, "
+            f"meta; {rec['cells'][f'{arch}:{name}']['s']:.1f}s): "
+            f"{rl.flops:.4e} FLOP, {rl.bytes_hbm:.4e} B; compute "
+            f"{rl.compute_s * 1e3:.3f} ms, memory {rl.memory_s * 1e3:.3f} "
+            f"ms, collective {rl.collective_s * 1e3:.3f} ms -> "
+            f"{rl.bottleneck}-bound; useful_ratio {rl.useful_ratio:.3f}; "
+            f"{card_line}")
+    out = DRYRUN_OUT
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_CLI, "--out", out],
+                       capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"dryrun CLI exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    with open(out) as f:
+        [cli] = json.load(f)
+    want = {"arch", "shape", "kind", "h100", "pod16x16", "multipod2x16x16",
+            "roofline"}
+    if not want <= set(cli) or cli["roofline"]["hw"] != hw["name"] or \
+            set(cli["h100"]["rolled_cost"]) != {"flops", "bytes", "coll"}:
+        raise AssertionError(f"dryrun CLI record {sorted(cli)}")
+    rec["cli"] = {"s": time.perf_counter() - t0, "record": cli}
+    log(f"phase 20 (c) python -m repro_torch.launch.dryrun "
+        f"{' '.join(DRYRUN_CLI)}: exit 0 in {rec['cli']['s']:.1f}s; h100 row args "
+        f"{cli['h100']['argument_bytes_per_dev'] / 1e9:.3f} GB, temp "
+        f"{cli['h100']['temp_bytes_per_dev'] / 1e9:.3f} GB, pod16x16 args "
+        f"{cli['pod16x16']['argument_bytes_per_dev'] / 1e9:.3f} GB a "
+        f"device; roofline {cli['roofline']['bottleneck']}-bound on "
+        f"{cli['roofline']['hw']}")
+    for h in held:
+        log(f"phase 20 (b) held: {h['label']}: FLOPs equal ({h['flops']}), "
+            f"argument bytes equal ({h['argument_bytes']}), peak "
+            f"{(h['peak'] / h['card_peak'] - 1) * 100:+.2f}% of the card's, "
+            f"{h['ms']:.3f} ms against a {h['bound_ms']:.3f} ms "
+            f"{h['bound_by']} bound ({h['share'] * 100:.1f}%)")
+    rec["s"] = time.perf_counter() - t_phase
+    log(f"phase 20 {rec['s']:.1f}s; {card_line}")
     return rec
 
 
@@ -5427,13 +5641,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lm_before = k_launches()
-    phase_lm(torch, card_line)          # resets the peak
+    lm_rec = phase_lm(torch, card_line)          # resets the peak
     peak = max(peak, torch.cuda.max_memory_allocated())
     gc.collect()
     torch.cuda.empty_cache()
     lm_mid = k_launches()
     train_lm = phase_train_lm(torch, card_line)    # resets the peak
     peak = max(peak, train_lm["peak_gib"] * 2**30)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, card_line, lm_rec["dryrun"] + [train_lm["dryrun"]])
     lm_after = k_launches()
     k4["launches_by_path"] = {"moe": k4["launches"]}
     for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4")):

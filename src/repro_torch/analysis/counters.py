@@ -1,0 +1,187 @@
+"""What one call of the port's program costs, counted op by op: the eager
+program's counterpart of XLA's ``cost_analysis()`` and
+``memory_analysis()``.
+
+:func:`count_call` runs ``fn(*args)`` once under :class:`CountingMode`, a
+``TorchDispatchMode`` that sees every aten op the call runs (autograd's
+backward and ``torch.utils.checkpoint``'s recompute included, each where
+it runs: a recomputed forward is counted once, in the backward), and
+records:
+
+* ``flops``: ``torch.utils.flop_counter``'s registered formulas, as
+  ``FlopCounterMode`` counts them (an op with a decomposition is
+  decomposed, and its parts are counted);
+* ``bytes``: each op's tensor inputs read plus its tensor outputs
+  written, at the sizes of the views it is given; view and metadata ops
+  count 0. This is the traffic of the eager program, op by op: a fusion of
+  elementwise chains, or a kernel that keeps its tiles on chip, lowers it;
+* ``argument_bytes``: the distinct storages of the call's tensor
+  arguments;
+* ``peak_live_bytes``: the most bytes of storage live at once, the
+  arguments included. A storage is live from the op that first returns it
+  until its last C++ reference goes (``StorageWeakRef``): autograd keeps
+  the tensors it saves for the backward through C++ tensors that share
+  their storage after the Python objects are gone, so a tracker keyed on
+  Python tensors would undercount every backward and every remat;
+* ``output_bytes``: the storages of the result that no argument holds.
+
+The mode counts meta, CPU and CUDA tensors alike, so one program gives the
+same counts on each. On the card ``torch.cuda.max_memory_allocated`` also
+sees what a kernel allocates inside one op (a library's workspace) and
+rounds each block up to 512 bytes; the tracker sees storages only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Tuple
+
+import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
+
+__all__ = ["Counts", "CountingMode", "count_call", "storage_bytes"]
+
+_aten = torch.ops.aten
+# ops that read metadata only (FlopCounterMode passes the same set through)
+_METADATA = {
+    _aten.sym_is_contiguous.default, _aten.is_contiguous.default,
+    _aten.is_contiguous.memory_format, _aten.is_strides_like_format.default,
+    _aten.is_non_overlapping_and_dense.default, _aten.size.default,
+    _aten.sym_size.default, _aten.stride.default, _aten.sym_stride.default,
+    _aten.storage_offset.default, _aten.sym_storage_offset.default,
+    _aten.numel.default, _aten.sym_numel.default, _aten.dim.default,
+    torch.ops.prim.layout.default, torch.ops.prim.device.default,
+}
+
+
+@dataclasses.dataclass
+class Counts:
+    """One call's counts (see the module docstring)."""
+    flops: int
+    bytes: int
+    argument_bytes: int
+    output_bytes: int
+    peak_live_bytes: int
+    ops: int
+    seconds: float = 0.0
+
+    @property
+    def temp_bytes(self) -> int:
+        """The peak less the arguments: what the call needs beyond them."""
+        return self.peak_live_bytes - self.argument_bytes
+
+
+_DECOMPOSES: Dict[Any, bool] = {}
+
+
+def _decomposes(func) -> bool:
+    """Whether ``func`` has a CompositeImplicitAutograd kernel, which
+    ``FlopCounterMode`` runs in place of the op (cached per op)."""
+    d = _DECOMPOSES.get(func)
+    if d is None:
+        dk = torch._C.DispatchKey.CompositeImplicitAutograd
+        d = _DECOMPOSES[func] = (
+            dk in func.py_kernels
+            or torch._C._dispatch_has_kernel_for_dispatch_key(func.name(), dk))
+    return d
+
+
+def _tensors(tree) -> Iterable[torch.Tensor]:
+    return (t for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def _storages(tree) -> Dict[int, int]:
+    """{storage key: bytes} of the distinct storages of ``tree``'s tensors."""
+    return {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in _tensors(tree)}
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of the tensors in ``tree``."""
+    return sum(_storages(tree).values())
+
+
+def _view_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class CountingMode(TorchDispatchMode):
+    """Counts the ops run under it (see the module docstring). The live set
+    is swept lazily: a storage's bytes stay in ``_tracked`` until a sweep
+    finds it expired, so ``_tracked`` never undercounts; a sweep runs only
+    when a new storage could lift the peak, which keeps the peak exact."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.ops = 0
+        self.peak_live_bytes = 0
+        self._live: Dict[int, Tuple[StorageWeakRef, int]] = {}
+        self._tracked = 0
+
+    def _sweep(self) -> None:
+        dead = [k for k, (ref, _) in self._live.items() if ref.expired()]
+        for k in dead:
+            self._tracked -= self._live.pop(k)[1]
+
+    def track(self, tree) -> int:
+        """Registers the storages of the tensors in ``tree``; returns the
+        bytes of those the mode had not seen live."""
+        added = 0
+        for t in _tensors(tree):
+            s = t.untyped_storage()
+            key = s._cdata
+            old = self._live.get(key)
+            if old is not None:
+                if not old[0].expired():
+                    continue
+                self._tracked -= self._live.pop(key)[1]
+            n = s.nbytes()
+            if self._tracked + n > self.peak_live_bytes:
+                self._sweep()
+            self._live[key] = (StorageWeakRef(s), n)
+            self._tracked += n
+            self.peak_live_bytes = max(self.peak_live_bytes, self._tracked)
+            added += n
+        return added
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _METADATA:
+            return func(*args, **kwargs)
+        if _decomposes(func):
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        self.ops += 1
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += int(formula(*args, **kwargs, out_val=out))
+        if not func.is_view:
+            self.bytes += sum(_view_bytes(t) for t in _tensors((args, kwargs)))
+            self.bytes += sum(_view_bytes(t) for t in _tensors(out))
+        self.track(out)
+        return out
+
+
+def count_call(fn: Callable, *args, **kwargs) -> Tuple[Any, Counts]:
+    """``fn(*args, **kwargs)`` once under a :class:`CountingMode`; returns
+    its result and the :class:`Counts` of the call."""
+    mode = CountingMode()
+    arg_bytes = mode.track((args, kwargs))
+    arg_keys = set(mode._live)
+    t0 = time.perf_counter()
+    with mode:
+        out = fn(*args, **kwargs)
+    seconds = time.perf_counter() - t0
+    out_bytes = sum(n for k, n in _storages(out).items() if k not in arg_keys)
+    return out, Counts(flops=mode.flops, bytes=mode.bytes,
+                       argument_bytes=arg_bytes, output_bytes=out_bytes,
+                       peak_live_bytes=mode.peak_live_bytes, ops=mode.ops,
+                       seconds=seconds)

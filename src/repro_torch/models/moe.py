@@ -82,7 +82,10 @@ def aux_load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
                           n_experts: int) -> torch.Tensor:
     """Switch-style load balancing loss (mean_prob x mean_assignment)."""
     me = probs.mean(0)
-    ce = F.one_hot(ids[:, 0], n_experts).float().mean(0)
+    # the one-hot as a comparison with arange, the same ops on every device
+    # (F.one_hot reads its input's range back to the host on the CPU only)
+    ce = (ids[:, 0, None] == torch.arange(n_experts, device=ids.device)
+          ).float().mean(0)
     return n_experts * torch.sum(me * ce)
 
 

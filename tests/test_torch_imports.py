@@ -9,7 +9,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+env = dict(os.environ)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -17,8 +18,15 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+# no module sets an environment variable when it is imported
+bad += sorted(k for k in set(env) | set(os.environ)
+              if env.get(k) != os.environ.get(k))
 print(len(names), ",".join(bad))
 """
+
+# the one reference module whose counterpart has another name: the port's
+# rule family for its ctypes launches, in place of the Pallas one
+RENAMED = {"statics.pallas_rules": "statics.launch_rules"}
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -33,38 +41,29 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_every_reference_module_of_the_slice_has_a_counterpart():
+    """Every module under ``src/repro`` has one at the same path under
+    ``src/repro_torch`` (``RENAMED`` names the one exception)."""
     import repro_torch
     have = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")}
-    for mod in ("core.graph", "core.partition", "core.plan_cache",
-                "core.plan_repair", "checkpoint.manager", "core.spmm", "data.graphs", "kernels.ref", "kernels.ops",
-                "kernels.spmm_accel", "kernels.spmm_batched",
-                "kernels.router", "kernels.spmm_hbm",
-                "kernels.grouped_matmul", "models.layers", "models.gcn",
-                "models.moe", "serve.scheduler", "serve.graph_engine",
-                "configs.base", "configs.dbrx_132b",
-                "configs.deepseek_moe_16b", "configs.qwen1p5_32b",
-                "configs.phi3_mini_3p8b", "configs.gemma2_27b",
-                "configs.internlm2_20b", "configs.zamba2_7b",
-                "configs.hubert_xlarge", "configs.chameleon_34b",
-                "configs.mamba2_780m", "tuning.search", "tuning.tuner",
-                "sampling.store", "sampling.sampler", "sampling.service",
-                "distributed.replication", "distributed.placement",
-                "distributed.shard_spmm", "distributed.directory",
-                "distributed.multihost", "launch.mesh", "serve.fleet",
-                "statics.findings", "statics.lock_rules",
-                "statics.future_rules", "statics.analyzer",
-                "statics.witness", "models.attention", "models.ssm",
-                "models.lm", "sharding.rules", "train.step",
-                "serve.engine", "optim.adamw", "train.loop", "data.tokens",
-                "launch.train"):
+    root = os.path.join(SRC, "repro")
+    ref = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), root)[:-3]
+                mod = rel.replace(os.sep, ".")
+                ref.append(mod[:-len(".__init__")] if
+                           mod.endswith(".__init__") else mod)
+    assert len(ref) >= 74 and "launch.dryrun" in ref \
+        and "analysis.roofline" in ref
+    missing = [m for m in ref if m != "__init__"
+               and f"repro_torch.{RENAMED.get(m, m)}" not in have]
+    assert missing == [], missing
+    # the port's own modules beside the reference's
+    for mod in ("statics.launch_rules", "statics.__main__",
+                "analysis.counters", "kernels.build"):
         assert f"repro_torch.{mod}" in have
-        ref_path = os.path.join(SRC, "repro", *mod.split(".")) + ".py"
-        assert os.path.exists(ref_path), ref_path
-    # the port's own rule family, in place of the reference's Pallas one
-    assert "repro_torch.statics.launch_rules" in have
-    assert "repro_torch.statics.__main__" in have
-    assert "repro_torch.sharding" in have and "repro_torch.train" in have
 
 
 def test_statics_loads_no_other_port_module():

@@ -194,7 +194,14 @@ torch.cuda.Event = HostEvent
 torch.cuda.synchronize = lambda *a: None
 torch.cuda.reset_peak_memory_stats = lambda *a: None
 torch.cuda.max_memory_allocated = lambda *a: 0
+torch.cuda.memory_allocated = lambda *a: 0
 torch.cuda.empty_cache = lambda: None
+import repro_torch.analysis.roofline as roofline
+# phase 20 (b): the card's row, named here; the CPU has no allocator peak,
+# so the tracker's own count on the CPU stands in for the card's
+roofline.hw_for = lambda device="cuda": roofline.hw_row(
+    "NVIDIA H100 80GB HBM3")
+chip_smoke.card_step_peak = lambda torch, base, counts: counts.peak_live_bytes
 rec = chip_smoke.phase_lm(torch, "CPU", device="cpu")
 print(json.dumps({{"reused": rec["engine"]["slots_reused"],
                   "load": {{k: [r["requests"], r["tokens"]]
@@ -203,7 +210,11 @@ print(json.dumps({{"reused": rec["engine"]["slots_reused"],
                   "consistency": rec["consistency"],
                   "slot_reuse": rec["slot_reuse"],
                   "cut": {{a: [r["prefill_vs_decode"], r["card_vs_cpu"]]
-                          for a, r in rec["cut"].items()}}}}))
+                          for a, r in rec["cut"].items()}},
+                  "dryrun": [[h[k] for k in ("flops", "card_flops",
+                                             "argument_bytes", "live_bytes",
+                                             "peak", "card_peak")]
+                             for h in rec["dryrun"]]}}))
 """
 
 
@@ -228,3 +239,8 @@ def test_phase18_on_cpu_at_reduced_configs():
     assert max(rec["consistency"].values()) <= 0.1
     assert len(rec["cut"]) == 9
     assert all(max(v) <= 1e-3 for v in rec["cut"].values())
+    # phase 20 (b) at the two decode batches: meta against the CPU, exact
+    assert len(rec["dryrun"]) == 2
+    for flops, cflops, args, live, peak, cpeak in rec["dryrun"]:
+        assert flops == cflops > 0 and args == live > 0
+        assert peak == cpeak > args

@@ -34,6 +34,12 @@ torch.cuda.max_memory_allocated = lambda *a: 0
 torch.cuda.memory_allocated = lambda *a: 0
 torch.cuda.empty_cache = lambda: None
 torch.backends.cudnn.allow_tf32 = False       # phase 1 does this on the card
+import repro_torch.analysis.roofline as roofline
+# phase 20 (b): the card's row, named here; the CPU has no allocator peak,
+# so the tracker's own count on the CPU stands in for the card's
+roofline.hw_for = lambda device="cuda": roofline.hw_row(
+    "NVIDIA H100 80GB HBM3")
+chip_smoke.card_step_peak = lambda torch, base, counts: counts.peak_live_bytes
 rec = chip_smoke.phase_train_lm(torch, "CPU", device="cpu")
 print(json.dumps({{"losses": rec["full"]["losses"],
                   "profile": rec["full"]["profile"]["stacks"],
@@ -42,7 +48,10 @@ print(json.dumps({{"losses": rec["full"]["losses"],
                   "microbatch": rec["microbatch"]["loss_rel"],
                   "archs": {{a: r["loss"] for a, r in rec["archs"].items()}},
                   "restart": rec["restart"]["bit_equal"],
-                  "launches": rec["launches"]}}))
+                  "launches": rec["launches"],
+                  "dryrun": [rec["dryrun"][k] for k in (
+                      "flops", "card_flops", "argument_bytes", "live_bytes",
+                      "peak", "card_peak")]}}))
 """
 
 
@@ -62,3 +71,6 @@ def test_phase19_on_cpu_at_reduced_configs():
     assert len(rec["archs"]) == 9
     assert rec["restart"] is True               # bit for bit on the CPU
     assert rec["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    # phase 20 (b) on the train step: meta against the CPU, exact
+    flops, cflops, args, live, peak, cpeak = rec["dryrun"]
+    assert flops == cflops > 0 and args == live > 0 and peak == cpeak > args

@@ -317,6 +317,28 @@ Phases (any failure exits non-zero and prints no result line):
    (c) ``python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b
    --shape decode_32k`` in a subprocess exits 0 and its record has the
    reference's keys.
+21. slice L's partitioned LM step (after phase 20; no kernel of the port
+   is on it), every part in child processes, so this process makes no
+   process group: (a) one process per visible card joins an nccl group
+   (``make_host_mesh()``: a 1x1 mesh on one card, ``data`` = N on N) and
+   runs phi3-mini-3.8b at full width cut to ``SHARD_LAYERS`` layers
+   (bf16 on one card, fp32 on several) through the distributed
+   ``init_train_state`` -> ``make_train_step`` (B=4, T=512, 3 steps, the
+   last counted), ``prefill_forward`` of a 128-token prompt and 4 greedy
+   ``make_serve_step`` decode steps, then the one-card program from the
+   same seed in the same process: losses, sampled leaves (gathered),
+   logits and tokens bit-equal on one card (deterministic kernels), within
+   ``SHARD_REL`` on several; step ms, peak GiB and the collectives of the
+   counted step are printed. (b) rank 0 of ``pod16x16`` under a ``fake``
+   group of 256 ranks, phi3 at full width and depth, ``train_4k`` (global
+   batch 256, T=4096) and ``decode_32k`` (batch 128, S=32,768): the dry
+   run's prediction traced on meta in a child (started beside (a)), then,
+   where it fits in 80 GB, the same step in another child with its local
+   shards allocated on the card and counted under the same mode: FLOPs and
+   collective bytes equal, argument bytes equal, the peak within
+   ``SHARD_PEAK_REL`` of the prediction, and its CUDA-event ms (compute of
+   one rank, no communication: the fake group moves nothing, so its values
+   are not a model's and nothing is asserted of them).
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -5572,6 +5594,397 @@ def phase_dryrun(torch, card_line, held):
     return rec
 
 
+# ------------------------------------------------------------ slice L
+SHARD_ARCH = LM_ARCH            # phi3-mini-3.8b
+SHARD_LAYERS = 4                # (a): full width, depth cut (phase 19 runs 32)
+SHARD_B, SHARD_T = 4, 512       # (a): the train step's batch
+SHARD_STEPS = 3                 # (a): train steps
+SHARD_PROMPT = 128              # (a): prefill length, then greedy decode
+SHARD_DECODE = 4                # (a): decode steps
+SHARD_REL = 1e-5                # (a), N > 1 cards: fp32, as the CPU tests
+SHARD_CELLS = ("train_4k", "decode_32k")   # (b): rank 0 of pod16x16
+SHARD_PEAK_REL = 0.01           # (b): measured peak against the dry run's
+SHARD_TIMED = 1                 # (b): timed steps after the counted one
+SHARD_TIMEOUT_S = 900.0
+
+
+def _shard_child(entry, args, out, env_extra=None):
+    """A ``python -c`` child running ``chip_smoke.<entry>(*args)``, its
+    JSON result written to ``out``."""
+    src = (f"import sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+           f"import chip_smoke\nchip_smoke.{entry}(*{args!r}, "
+           f"out={out!r})\n")
+    env = dict(os.environ, PYTHONPATH=SRC, **(env_extra or {}))
+    return subprocess.Popen([sys.executable, "-c", src], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _shard_wait(procs, t0, what):
+    """Waits for ``procs`` (the phase's limit from ``t0``); raises with the
+    tail of each failed child's errors, after killing the rest."""
+    errs = []
+    for i, p in enumerate(procs):
+        try:
+            so, se = p.communicate(timeout=max(
+                1.0, SHARD_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"{what} {i}: no result in "
+                                 f"{SHARD_TIMEOUT_S:.0f}s")
+        for line in so.splitlines():
+            log(f"  [{what} {i}] {line}")
+        if p.returncode:
+            errs.append(f"{what} {i} exit {p.returncode}: {se[-3000:]}")
+    if errs:
+        raise AssertionError("\n".join(errs))
+
+
+def _whole_leaves(torch, tree, names):
+    """The named leaves of a parameter tree, whole, as fp32 CPU tensors."""
+    from repro_torch.train.step import whole
+    out = {}
+    for name in names:
+        t = tree
+        for k in name.split("."):
+            t = t[k]
+        out[name] = whole(t).detach().float().cpu()
+    return out
+
+
+SHARD_SAMPLE = ("embed", "head", "final_norm.w", "layers.attn.wq",
+                "layers.attn.wo", "layers.mlp.wg", "layers.mlp.wo",
+                "layers.ln2.w")
+
+
+class _HostEvent:
+    """``torch.cuda.Event``'s timing on the host clock (a CPU rehearsal)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _events(torch, dev):
+    if dev.type == "cuda":
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+    return _HostEvent(), _HostEvent()
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_real_worker(rank, world, init, out, device="cuda"):
+    """Phase 21 (a), one rank: the partitioned program over every visible
+    card (nccl, ``make_host_mesh()``) against the one-card program in the
+    same process, from the same seed (``device="cpu"``: gloo, a CPU
+    rehearsal)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.counters import count_call
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.sharding import distribute, param_specs
+    from repro_torch.train.step import (TrainState, make_serve_step,
+                                        make_train_step, whole)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dev = torch.device(device, rank) if cuda else torch.device(device)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = get_config(SHARD_ARCH).replace(n_layers=SHARD_LAYERS)
+        sizes = make_host_mesh(device=device)
+        mesh = make_device_mesh(sizes, device=device)
+        fp32 = world > 1
+
+        def params_from_seed():
+            p = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+            return tree_map(lambda t: t.float(), p) if fp32 else p
+
+        bf = train_batch_fn(torch, cfg, SHARD_B, SHARD_T, dev)
+        kw = dict(peak_lr=3e-4, warmup=2, loss_chunk=512, q_chunk=512,
+                  kv_chunk=512)
+        res = {"rank": rank, "world": world, "mesh": sizes,
+               "layers": SHARD_LAYERS, "fp32": fp32}
+        runs = {}
+        for name in ("partitioned", "one card"):
+            p = params_from_seed()
+            if name == "partitioned":
+                p = distribute(p, param_specs(p, mesh), mesh)
+            state = TrainState(p, adamw_init(p))
+            step = make_train_step(cfg, **kw)
+            losses, ms, counts = [], [], None
+            _sync(torch, dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            for i in range(SHARD_STEPS):
+                batch = bf(i)
+                a, b = _events(torch, dev)
+                a.record()
+                if i == SHARD_STEPS - 1:   # both counted: the same kernels
+                    (state, m), counts = count_call(step, state, batch)
+                else:
+                    state, m = step(state, batch)
+                b.record()
+                _sync(torch, dev)
+                ms.append(a.elapsed_time(b))
+                losses.append((float(m["loss"]), float(m["grad_norm"])))
+            leaves = _whole_leaves(torch, state.params, SHARD_SAMPLE)
+            prompt = bf(99)["inputs"][:, :SHARD_PROMPT].contiguous()
+            with torch.inference_mode():
+                lg, st = lm.prefill_forward(cfg, state.params, prompt)
+                lg = whole(lg)
+                st = lm.pad_prefill_caches(cfg, st, SHARD_PROMPT
+                                           + SHARD_DECODE)
+                tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+                toks, logits = [tok], [lg.float().cpu()]
+                serve = make_serve_step(cfg)
+                for _ in range(SHARD_DECODE):
+                    tok, lg, st = serve(state.params, st, tok)
+                    toks.append(tok)
+                    logits.append(lg.float().cpu())
+            runs[name] = {"losses": losses, "ms": ms, "leaves": leaves,
+                          "tokens": torch.cat(toks, 1).cpu(),
+                          "logits": logits,
+                          "peak": (torch.cuda.max_memory_allocated()
+                                   if cuda else 0),
+                          "counts": counts}
+            del state, p, st
+            if cuda:
+                torch.cuda.empty_cache()
+        a, b = runs["partitioned"], runs["one card"]
+        if fp32:
+            def err(x, y):
+                return float((x - y).abs().max() / max(float(y.abs().max()),
+                                                       1e-30))
+        else:
+            def err(x, y):
+                return 0.0 if torch.equal(x, y) else float(
+                    (x - y).abs().max())
+        res["loss_err"] = max(abs(x[0] - y[0]) / abs(y[0])
+                              for x, y in zip(a["losses"], b["losses"]))
+        res["loss_equal"] = a["losses"] == b["losses"]
+        res["leaf_err"] = {k: err(a["leaves"][k], b["leaves"][k])
+                           for k in SHARD_SAMPLE}
+        res["logit_err"] = max(err(x, y) for x, y in zip(a["logits"],
+                                                          b["logits"]))
+        res["tokens_equal"] = bool(torch.equal(a["tokens"], b["tokens"]))
+        res["losses"] = a["losses"]
+        res["ms"] = {k: v["ms"] for k, v in runs.items()}
+        res["peak_gib"] = {k: v["peak"] / 2**30 for k, v in runs.items()}
+        c = a["counts"]
+        res["coll_bytes"] = c.coll_bytes
+        res["coll_n"] = {}
+        for kind, *_ in c.collectives:
+            res["coll_n"][kind] = res["coll_n"].get(kind, 0) + 1
+        res["flops"] = {k: v["counts"].flops for k, v in runs.items()}
+        res["k_launches"] = k_launches()
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_meta_worker(cell, out):
+    """Phase 21 (b), the prediction: rank 0's share of ``cell`` on
+    pod16x16, traced on meta under a fake group (the dry run's row)."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg, shape = get_config(SHARD_ARCH), SHAPES_BY_NAME[cell]
+    c, s = D.trace_partitioned(cfg, shape, make_production_mesh())
+    with open(out, "w") as f:
+        json.dump({"flops": c.flops, "bytes": c.bytes,
+                   "coll_bytes": c.coll_bytes, "argument": c.argument_bytes,
+                   "peak": c.peak_live_bytes, "trace_s": s}, f)
+
+
+def shard_card_worker(cell, out, device="cuda"):
+    """Phase 21 (b), the card: rank 0's share of ``cell`` on pod16x16 under
+    a fake group of 256 ranks, its local shards allocated on the card (from
+    a generator; the fake collectives move nothing, so the values computed
+    are not a model's), counted under the dry run's mode, then timed
+    (``device="cpu"``: a CPU rehearsal, no memory or time of a card)."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.analysis.counters import storage_bytes
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_device_mesh, make_production_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train.step import materialize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, shape = get_config(SHARD_ARCH), SHAPES_BY_NAME[cell]
+    sizes = make_production_mesh()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(sizes.values()))
+    try:
+        moe.DISPATCH_GROUPS = sizes["data"]
+        mesh = make_device_mesh(sizes, device=device)
+        fn, args = D.build_cell(cfg, shape, device="meta", mesh=mesh)
+        args = materialize(args, device,
+                           torch.Generator(device=dev).manual_seed(0))
+        live = storage_bytes(args)
+        _sync(torch, dev)
+        base = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        c = D.run_counted(fn, args, shape.kind, mesh)
+        _sync(torch, dev)
+        peak = card_step_peak(torch, base, c) if cuda else c.peak_live_bytes
+        times = []
+        for _ in range(SHARD_TIMED):
+            a, b = _events(torch, dev)
+            a.record()
+            with torch.set_grad_enabled(shape.kind == "train"), \
+                    use_mesh(mesh):
+                fn(*args)
+            b.record()
+            _sync(torch, dev)
+            times.append(a.elapsed_time(b))
+        with open(out, "w") as f:
+            json.dump({"flops": c.flops, "bytes": c.bytes,
+                       "coll_bytes": c.coll_bytes,
+                       "argument": c.argument_bytes, "live": live,
+                       "peak": peak,
+                       "max_allocated": (torch.cuda.max_memory_allocated()
+                                         if cuda else 0),
+                       "tracker_peak": c.peak_live_bytes,
+                       "counted_s": c.seconds, "ms": times,
+                       "k_launches": k_launches()}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, card_line):
+    """Phase 21: slice L's partitioned step (see the module docstring).
+    Every part runs in child processes: this process makes no group.
+    Returns K1-K4's launches on the phase's paths (the children's)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    n = torch.cuda.device_count()
+    rec = {"cells": {}}
+    # (b)'s predictions on meta, all cells at once, beside (a)
+    t_meta = time.perf_counter()
+    outs = {cell: os.path.join(tmp, f"meta_{cell}.json")
+            for cell in SHARD_CELLS}
+    metas = [_shard_child("shard_meta_worker", (cell,), outs[cell])
+             for cell in SHARD_CELLS]
+    # (a) a real group over every visible card
+    init = os.path.join(tmp, "nccl_init")
+    out_a = os.path.join(tmp, "real.json")
+    t0 = time.perf_counter()
+    procs = [_shard_child("shard_real_worker", (r, n, init), out_a,
+                          {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+             for r in range(n)]    # deterministic cuBLAS for bit-equality
+    try:
+        _shard_wait(procs, t0, "rank")
+    except BaseException:
+        for q in metas:
+            q.kill()
+        raise
+    with open(out_a) as f:
+        a = json.load(f)
+    rec["real"] = a
+    log(f"phase 21 (a) {SHARD_ARCH} at full width, {SHARD_LAYERS} of 32 "
+        f"layers ({'fp32' if a['fp32'] else 'bf16'}), mesh {a['mesh']} over "
+        f"{n} card(s), nccl: {SHARD_STEPS} train steps at B={SHARD_B}, "
+        f"T={SHARD_T}, a {SHARD_PROMPT}-token prefill and {SHARD_DECODE} "
+        f"greedy decode steps, against the one-card program from the same "
+        f"seed in the same process; {time.perf_counter() - t0:.1f}s")
+    log(f"phase 21 (a) losses (loss, grad_norm) {a['losses']}; partitioned "
+        f"step ms {[round(x, 3) for x in a['ms']['partitioned']]}, one card "
+        f"{[round(x, 3) for x in a['ms']['one card']]} (CUDA events; the "
+        f"last step of each under the counting mode); FLOPs of that step "
+        f"{a['flops']}; peak "
+        f"{a['peak_gib']['partitioned']:.2f} / "
+        f"{a['peak_gib']['one card']:.2f} GiB; collectives of one step "
+        f"{a['coll_n']} = {a['coll_bytes']} B (the reference's rule); "
+        f"{card_line}")
+    log(f"phase 21 (a) against one card: loss rel err {a['loss_err']:.3g} "
+        f"(equal: {a['loss_equal']}), sampled leaves {a['leaf_err']}, "
+        f"logits {a['logit_err']:.3g}, tokens equal {a['tokens_equal']}")
+    if n == 1:
+        if not (a["loss_equal"] and a["tokens_equal"]
+                and a["logit_err"] == 0
+                and all(v == 0 for v in a["leaf_err"].values())):
+            raise AssertionError("phase 21 (a): the 1x1 mesh is not "
+                                 "bit-equal to the one-card program")
+    elif not (a["loss_err"] <= SHARD_REL and a["logit_err"] <= SHARD_REL
+              and max(a["leaf_err"].values()) <= SHARD_REL
+              and a["tokens_equal"]):
+        raise AssertionError(f"phase 21 (a): beyond {SHARD_REL} of one card")
+    # (b) rank 0 of pod16x16: each cell the dry run says fits, on the card
+    launches = dict(a["k_launches"])
+    _shard_wait(metas, t_meta, "meta")
+    for cell in SHARD_CELLS:
+        with open(outs[cell]) as f:
+            m = json.load(f)
+        t0 = time.perf_counter()
+        out_c = os.path.join(tmp, f"card_{cell}.json")
+        if m["peak"] > 80e9:
+            log(f"phase 21 (b) {cell}: the dry run predicts a peak of "
+                f"{m['peak'] / 1e9:.2f} GB a device: does not fit in 80 GB; "
+                f"not run on the card")
+            rec["cells"][cell] = {"meta": m, "fits": False}
+            continue
+        pc = _shard_child("shard_card_worker", (cell,), out_c)
+        _shard_wait([pc], t0, "card")
+        with open(out_c) as f:
+            c = json.load(f)
+        for k, v in c["k_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        rec["cells"][cell] = {"meta": m, "card": c,
+                              "s": time.perf_counter() - t0}
+        rel = c["peak"] / m["peak"] - 1
+        log(f"phase 21 (b) {SHARD_ARCH} {cell}, rank 0 of pod16x16 (fake "
+            f"group of 256; full width and depth; a rehearsal of one rank's "
+            f"share, its values not a model's): FLOPs {m['flops']} on meta, "
+            f"{c['flops']} on the card; collective bytes {m['coll_bytes']} "
+            f"on meta, {c['coll_bytes']} on the card; argument bytes "
+            f"{m['argument']} predicted, {c['live']} live; peak "
+            f"{m['peak']} B ({m['peak'] / 2**30:.3f} GiB) predicted, "
+            f"{c['peak']} B on the card (max_memory_allocated "
+            f"{c['max_allocated']} B), {rel * 100:+.4f}%; step "
+            f"{[round(x, 3) for x in c['ms']]} ms by CUDA events: compute "
+            f"of one rank, no communication; meta trace {m['trace_s']:.1f}s; "
+            f"{card_line}")
+        if c["flops"] != m["flops"] or c["coll_bytes"] != m["coll_bytes"]:
+            raise AssertionError(f"phase 21 (b) {cell}: card and meta "
+                                 f"counts differ")
+        if c["argument"] != m["argument"] or abs(rel) > SHARD_PEAK_REL:
+            raise AssertionError(f"phase 21 (b) {cell}: arguments "
+                                 f"{c['argument']} vs {m['argument']}, "
+                                 f"peak {rel * 100:+.3f}%")
+    if not any("card" in v for v in rec["cells"].values()):
+        raise AssertionError("phase 21 (b): no cell ran on the card")
+    rec["launches"] = launches
+    rec["s"] = time.perf_counter() - t_phase
+    log(f"phase 21 {rec['s']:.1f}s; K1-K4 launches in its processes "
+        f"{launches}; {card_line}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5652,10 +6065,12 @@ def main():
     torch.cuda.empty_cache()
     phase_dryrun(torch, card_line, lm_rec["dryrun"] + [train_lm["dryrun"]])
     lm_after = k_launches()
+    sharded = phase_sharded(torch, card_line)
     k4["launches_by_path"] = {"moe": k4["launches"]}
     for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4")):
         rec["launches_by_path"]["lm"] = lm_mid[k] - lm_before[k]
         rec["launches_by_path"]["lm_train"] = lm_after[k] - lm_mid[k]
+        rec["launches_by_path"]["lm_sharded"] = sharded["launches"].get(k, 0)
     log(f"peak device memory {peak / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t0:.1f}s")
     records = [k1, k2, k3, k4]

@@ -23,7 +23,22 @@ records:
   the tensors it saves for the backward through C++ tensors that share
   their storage after the Python objects are gone, so a tracker keyed on
   Python tensors would undercount every backward and every remat;
-* ``output_bytes``: the storages of the result that no argument holds.
+* ``output_bytes``: the storages of the result that no argument holds;
+* ``coll_bytes``: the collectives of a partitioned program (the
+  ``_c10d_functional`` ops that DTensor's redistributions and the global
+  norm run), by the reference's kind names (``all-gather``,
+  ``reduce-scatter``, ``all-reduce``, ``all-to-all``) with the
+  reference's ``collective_bytes`` rule: the result's bytes, an
+  all-reduce twice, a reduce-scatter times its group's size. A
+  collective's traffic is counted here and not in ``bytes``; each one is
+  also listed in ``collectives`` (kind, group name, group size, result
+  shape, bytes).
+
+A DTensor op is left to DTensor (the mode returns ``NotImplemented``), so
+the mode counts the local ops and collectives it runs on each rank's
+shards: the counts of one rank's share. A DTensor argument's storage is
+its local shard's. The ops DTensor runs on fake tensors to infer a global
+shape (the first time it meets an op) are not counted.
 
 The mode counts meta, CPU and CUDA tensors alike, so one program gives the
 same counts on each. On the card ``torch.cuda.max_memory_allocated`` also
@@ -37,6 +52,8 @@ import time
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -57,6 +74,21 @@ _METADATA = {
 }
 
 
+# functional collectives -> the reference's kind names; the multiplier of
+# the result's bytes is the reference's (reduce-scatter: its group size)
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+_XFER = {"all-gather": 1, "all-reduce": 2, "all-to-all": 1}
+
+
 @dataclasses.dataclass
 class Counts:
     """One call's counts (see the module docstring)."""
@@ -67,6 +99,13 @@ class Counts:
     peak_live_bytes: int
     ops: int
     seconds: float = 0.0
+    coll_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    collectives: list = dataclasses.field(default_factory=list)
+
+    @property
+    def coll(self) -> int:
+        """Collective bytes of every kind."""
+        return sum(self.coll_bytes.values())
 
     @property
     def temp_bytes(self) -> int:
@@ -90,7 +129,9 @@ def _decomposes(func) -> bool:
 
 
 def _tensors(tree) -> Iterable[torch.Tensor]:
-    return (t for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+    """The tensors of ``tree``, a DTensor as its local shard."""
+    return (t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 def _storages(tree) -> Dict[int, int]:
@@ -120,6 +161,8 @@ class CountingMode(TorchDispatchMode):
         self.bytes = 0
         self.ops = 0
         self.peak_live_bytes = 0
+        self.coll_bytes: Dict[str, int] = {}
+        self.collectives: list = []
         self._live: Dict[int, Tuple[StorageWeakRef, int]] = {}
         self._tracked = 0
 
@@ -149,16 +192,43 @@ class CountingMode(TorchDispatchMode):
             added += n
         return added
 
+    def _collective(self, func, args, out) -> None:
+        kind = _COLLECTIVES.get(func._overloadpacket.__name__)
+        if kind is None:
+            return
+        n = sum(_view_bytes(t) for t in _tensors(out))
+        size = None
+        if kind in ("all-gather", "reduce-scatter"):
+            size = int(args[-2])
+        n *= size if kind == "reduce-scatter" else _XFER[kind]
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + n
+        self.collectives.append((kind, str(args[-1]), size,
+                                 [tuple(t.shape) for t in _tensors(out)], n))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # DTensor runs it on local shards
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation infers a global shape by
+            # running the op on fake tensors the first time it meets it:
+            # not a step of the program
+            return func(*args, **kwargs)
         if func in _METADATA:
             return func(*args, **kwargs)
+        if func.namespace == "_c10d_functional":
+            out = func(*args, **kwargs)
+            self._collective(func, args, out)
+            self.track(out)
+            return out
         if _decomposes(func):
             with self:
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in tree_leaves(out)):
+            return out      # a fake input of that shape inference
         self.ops += 1
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
@@ -184,4 +254,5 @@ def count_call(fn: Callable, *args, **kwargs) -> Tuple[Any, Counts]:
     return out, Counts(flops=mode.flops, bytes=mode.bytes,
                        argument_bytes=arg_bytes, output_bytes=out_bytes,
                        peak_live_bytes=mode.peak_live_bytes, ops=mode.ops,
-                       seconds=seconds)
+                       seconds=seconds, coll_bytes=dict(mode.coll_bytes),
+                       collectives=list(mode.collectives))

@@ -15,6 +15,14 @@ flatten in the leaf order of the reference package's
 holds no leaf), so ``a<i>`` names the same parameter in a checkpoint of
 either package, and a checkpoint written by one restores into the other.
 bf16 leaves are stored as fp32 (npz has no bf16) and restored as bf16.
+
+A partitioned state (DTensor leaves, one process a rank) is saved in the
+same format: every rank calls ``save`` (each leaf is gathered whole, one
+leaf at a time, which is a collective), rank 0 writes, and all ranks wait
+for its rename. ``restore`` reads the whole leaves on every rank and places
+each as the matching leaf of ``like`` is placed (``distribute_tensor``,
+each rank keeping its chunk), so a checkpoint crosses between one card
+and any mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["CheckpointManager"]
 
@@ -55,8 +65,20 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
     return next(leaves)
 
 
+def _partitioned(leaves: List[Any]) -> bool:
+    return any(isinstance(t, DTensor) for t in leaves)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a group, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
-    """A leaf as the host array to store and the name of its dtype."""
+    """A leaf as the host array to store and the name of its dtype; a
+    DTensor gathered whole first (a collective)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -90,24 +112,31 @@ class CheckpointManager:
     def save(self, step: int, tree: Any) -> str:
         final = self._path(step)
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
         leaves = _flatten(tree)
+        part = _partitioned(leaves)
+        write = _writer() if part else True
+        if write:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
         arrs = {}
         dtypes = []
         for i, leaf in enumerate(leaves):
-            a, dtype = _to_host(leaf)
+            a, dtype = _to_host(leaf)       # every rank: a gather
             dtypes.append(dtype)
-            arrs[f"a{i}"] = a
-        np.savez(os.path.join(tmp, "arrays.npz"), **arrs)
-        with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
-            json.dump({"step": step, "n_leaves": len(leaves),
-                       "dtypes": dtypes}, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)      # atomic publish
-        self._gc()
+            if write:
+                arrs[f"a{i}"] = a
+        if write:
+            np.savez(os.path.join(tmp, "arrays.npz"), **arrs)
+            with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+                json.dump({"step": step, "n_leaves": len(leaves),
+                           "dtypes": dtypes}, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)      # atomic publish
+            self._gc()
+        if part:
+            dist.barrier()             # the checkpoint exists for every rank
         return final
 
     def _gc(self):
@@ -121,8 +150,9 @@ class CheckpointManager:
     def restore(self, step: int, like: Any) -> Any:
         """Restore into the structure of ``like``: each leaf as a tensor of
         its saved dtype on the device of ``like``'s leaf (the CPU where that
-        leaf is not a tensor). Raises ``ValueError`` when the checkpoint
-        holds another number of leaves."""
+        leaf is not a tensor; a DTensor leaf placed as it is). Raises
+        ``ValueError`` when the checkpoint holds another number of
+        leaves."""
         path = self._path(step)
         with open(os.path.join(path, "MANIFEST.json")) as f:
             manifest = json.load(f)
@@ -140,6 +170,12 @@ class CheckpointManager:
                     t = torch.from_numpy(a.astype(np.float32)).bfloat16()
                 else:
                     t = torch.from_numpy(a.astype(want))
+                if isinstance(leaf, DTensor):
+                    loc = leaf.to_local()
+                    out.append(distribute_tensor(
+                        t.to(loc.device), leaf.device_mesh, leaf.placements,
+                        src_data_rank=None))
+                    continue
                 dev = (leaf.device if isinstance(leaf, torch.Tensor)
                        else torch.device("cpu"))
                 out.append(t.to(dev))

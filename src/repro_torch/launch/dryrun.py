@@ -12,19 +12,26 @@ program is eager and runs on one card, so here:
   chunks (512; SSD 128): argument, output and temporary bytes per device
   and the step's cost vector (``rolled_cost``, the reference's name). No
   memory is allocated and nothing is computed;
-* the production rows (``"pod16x16"``, ``"multipod2x16x16"``) carry the
-  per-device argument bytes of the reference's partitioning: each leaf's
-  bytes over the product of the mesh axes its ``param_specs`` /
-  ``cache_specs`` entry names. The port has no multi-card step, so the
-  costs only a partitioned program can give are ``"sharded_program": "not
-  in the port"``;
+* the production rows (``"pod16x16"``, ``"multipod2x16x16"``) trace
+  **rank 0's partitioned program** (:func:`trace_partitioned`): a
+  ``fake`` process group of 256 or 512 ranks (made and destroyed inside
+  the row, so the rest of the process sees no group), the state placed by
+  ``param_specs`` / ``cache_specs`` and the batch on the batch axes as
+  DTensors of meta shards, ``DISPATCH_GROUPS`` the "data" size, the step
+  counted on ``meta`` under the same mode: per-device argument, output,
+  temporary and peak bytes, and a ``rolled_cost`` with the collectives
+  (``coll``, ``coll_<kind>``) by the reference's ``collective_bytes``
+  rule. The fake group computes nothing: its counts are those of the
+  program, not of any values;
 * :func:`probe_roofline` traces the WHOLE depth at the reference's probe
   chunks (``min(4096, T)``, SSD 128): an eager trace counts every layer,
   so nothing is extrapolated (``_probe_plan`` is kept as the reference's,
   and the tests hold its extrapolation to the direct count);
-* the roofline is the one-card program's against a card of
-  :data:`~repro_torch.analysis.roofline.HARDWARE` (``--hw``; the card
-  this process runs on when not named).
+* the roofline is the one-card program's compute and memory terms, with
+  the collective term of the ``pod16x16`` row's partitioned program
+  (``collective_s = coll / link_bw``, its ``coll_breakdown``), against a
+  card of :data:`~repro_torch.analysis.roofline.HARDWARE` (``--hw``; the
+  card this process runs on when not named).
 
 FLOPs are the eager program's (every attention block, remat's recompute),
 not XLA's; bytes are op-by-op traffic (see ``analysis/counters.py``).
@@ -36,6 +43,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -53,12 +61,13 @@ from ..configs.base import ArchConfig, ShapeConfig
 from ..core.plan_cache import DeviceLike, resolve_device
 from ..models import lm
 from ..models import moe as moe_mod
-from ..sharding import batch_axes, cache_specs, param_specs, resolve_spec
+from ..sharding import (batch_axes, cache_specs, distribute, on_batch_axes,
+                        param_specs, resolve_spec, use_mesh)
 from ..train.step import init_train_state, make_train_step
-from .mesh import make_production_mesh
+from .mesh import make_device_mesh, make_production_mesh
 
-__all__ = ["input_specs", "build_cell", "trace_cell", "cost_vector",
-           "cost_roofline",
+__all__ = ["input_specs", "build_cell", "trace_cell", "trace_partitioned",
+           "fake_group", "cost_vector", "cost_roofline",
            "active_param_count", "probe_roofline", "sharded_argument_bytes",
            "run_cell", "main"]
 
@@ -96,12 +105,14 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 # step builders
 # ---------------------------------------------------------------------------
 def build_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None,
-               device: DeviceLike = "meta"):
+               device: DeviceLike = "meta", mesh=None):
     """Returns ``(fn, args)``: the cell's step and its arguments on
     ``device`` (parameters drawn from seed 0 off ``meta``). Train:
     ``make_train_step`` on ``init_train_state``; prefill:
     ``lm.prefill_forward``; decode: ``decode_step`` then the argmax as
-    int32. No shardings: the port's program runs on one card."""
+    int32. With a ``DeviceMesh``: the partitioned program, the state
+    placed by ``param_specs`` / ``cache_specs`` and the batch on the batch
+    axes (each rank's shards of the whole arguments)."""
     chunks = chunks or {}
     q = chunks.get("q_chunk", 512)
     kv = chunks.get("kv_chunk", 512)
@@ -113,31 +124,80 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None,
         torch.Generator(device=dev).manual_seed(0)
     specs = input_specs(cfg, shape, dev)
 
+    def batch(t):
+        return t if mesh is None else on_batch_axes(t, mesh)
+
     if shape.kind == "train":
-        state = init_train_state(cfg, gen, device=dev)
+        state = init_train_state(cfg, gen, device=dev, mesh=mesh)
         fn = make_train_step(cfg, loss_chunk=lc, q_chunk=q, kv_chunk=kv,
                              ssd_chunk=sc, microbatch=mb)
-        return fn, (state, specs)
+        return fn, (state, {k: batch(v) for k, v in specs.items()})
 
     params = lm.init_lm(cfg, gen, device=dev)
+    if mesh is not None:
+        params = distribute(params, param_specs(params, mesh), mesh)
     if shape.kind == "prefill":
         fn = functools.partial(lm.prefill_forward, cfg, q_chunk=q,
                                kv_chunk=kv, ssd_chunk=sc)
-        return fn, (params, specs["inputs"])
+        return fn, (params, batch(specs["inputs"]))
 
     def fn(params, state, tokens):
         logits, st = lm.decode_step(cfg, params, tokens, state)
         return torch.argmax(logits, -1).to(torch.int32), st
 
-    return fn, (params, specs["state"], specs["tokens"])
+    st = specs["state"]
+    if mesh is not None:
+        st = distribute(st, cache_specs(st, mesh), mesh)
+    return fn, (params, st, batch(specs["tokens"]))
 
 
-def run_counted(fn, args, kind: str) -> Counts:
-    """``fn(*args)`` once under the counting mode; autograd only for
-    train (the reference's prefill and decode are pure forwards)."""
-    with torch.set_grad_enabled(kind == "train"):
+def run_counted(fn, args, kind: str, mesh=None) -> Counts:
+    """``fn(*args)`` once under the counting mode (and ``mesh``'s context);
+    autograd only for train (the reference's prefill and decode are pure
+    forwards)."""
+    with torch.set_grad_enabled(kind == "train"), use_mesh(mesh):
         _, counts = count_call(fn, *args)
     return counts
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """A ``fake`` process group of ``world`` ranks as rank ``rank`` for the
+    block (collectives return without moving or computing anything),
+    destroyed after it. Raises where a group already exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def trace_partitioned(cfg: ArchConfig, shape: ShapeConfig,
+                      sizes: Dict[str, int], *, chunks=None,
+                      device: DeviceLike = "meta",
+                      rank: int = 0) -> Tuple[Counts, float]:
+    """Rank ``rank``'s share of the cell's partitioned program over a mesh
+    of axis sizes ``sizes``, traced once on ``device`` (``meta``: nothing
+    allocated) under a fake process group of that many ranks, with the
+    reference's ``DISPATCH_GROUPS`` handling: its :class:`Counts` and the
+    seconds the trace took."""
+    prev_groups = moe_mod.DISPATCH_GROUPS
+    if moe_mod.DISPATCH_GROUPS == 1:
+        moe_mod.DISPATCH_GROUPS = sizes.get("data", 1)
+    try:
+        with fake_group(math.prod(sizes.values()), rank):
+            mesh = make_device_mesh(sizes, device=device)
+            fn, args = build_cell(cfg, shape, chunks=chunks, device=device,
+                                  mesh=mesh)
+            counts = run_counted(fn, args, shape.kind, mesh)
+        return counts, counts.seconds
+    finally:
+        moe_mod.DISPATCH_GROUPS = prev_groups
 
 
 def trace_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None
@@ -158,19 +218,32 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None
 
 
 def cost_vector(counts: Counts) -> Dict[str, float]:
-    """The reference's ``_cost_vector`` keys: ``flops``, ``bytes`` and
-    ``coll`` (0: the one-card program has no collective)."""
+    """The reference's ``_cost_vector`` keys: ``flops``, ``bytes``, ``coll``
+    (0 for the one-card program) and ``coll_<kind>`` for each kind of
+    collective the program ran."""
     return {"flops": float(counts.flops), "bytes": float(counts.bytes),
-            "coll": 0.0}
+            "coll": float(counts.coll),
+            **{f"coll_{k}": float(v) for k, v in counts.coll_bytes.items()}}
 
 
 def cost_roofline(cost: Dict[str, float], *, model_flops=None,
                   hw: HwLike = None):
     """``roofline_terms`` of a :func:`cost_vector` for the one-card
-    program (``chips=1``, no HLO)."""
-    return roofline_terms({"flops": cost["flops"],
-                           "bytes accessed": cost["bytes"]}, "", chips=1,
-                          model_flops=model_flops, hw=hw)
+    program (``chips=1``, no HLO); a vector with ``coll`` (a partitioned
+    row's, :func:`probe_roofline`'s ``coll=``) also gets the collective
+    term, ``coll / link_bw``, and its ``coll_breakdown``."""
+    rl = roofline_terms({"flops": cost["flops"],
+                         "bytes accessed": cost["bytes"]}, "", chips=1,
+                        model_flops=model_flops, hw=hw)
+    if cost.get("coll"):
+        rl.bytes_coll = cost["coll"]
+        rl.coll_breakdown = {k[5:]: v for k, v in cost.items()
+                             if k.startswith("coll_")}
+        rl.collective_s = cost["coll"] / hw_row(hw)["link_bw"]
+        terms = {"compute": rl.compute_s, "memory": rl.memory_s,
+                 "collective": rl.collective_s}
+        rl.bottleneck = max(terms, key=terms.get)
+    return rl
 
 
 # ---------------------------------------------------------------------------
@@ -233,15 +306,21 @@ def _probe_plan(cfg: ArchConfig):
     return "linear", [cfg.replace(n_layers=1), cfg.replace(n_layers=2)], cfg.n_layers
 
 
-def probe_roofline(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, float]:
+def probe_roofline(cfg: ArchConfig, shape: ShapeConfig,
+                   coll: Dict[str, float] = None) -> Dict[str, float]:
     """Full-depth one-card cost vector at the reference's probe chunks
-    (every layer traced: nothing to extrapolate)."""
+    (every layer traced: nothing to extrapolate); ``coll``, a partitioned
+    row's ``rolled_cost``, gives it that row's collectives (``coll`` and
+    ``coll_<kind>``)."""
     # full-attention FLOPs are chunk-invariant; larger chunks trace faster
     T = shape.seq_len
     chunks = {"q_chunk": min(4096, T), "kv_chunk": min(4096, T),
               "loss_chunk": min(4096, T), "ssd_chunk": 128}
     counts, _ = trace_cell(cfg, shape, chunks=chunks)
-    return cost_vector(counts)
+    vec = cost_vector(counts)
+    if coll is not None:
+        vec.update({k: v for k, v in coll.items() if k.startswith("coll")})
+    return vec
 
 
 # ---------------------------------------------------------------------------
@@ -331,14 +410,28 @@ def run_cell(arch: str, shape_name: str, *, do_multipod=True,
         meshes.append(("multipod2x16x16", make_production_mesh(multi_pod=True)))
     for mname, mesh in meshes:
         chips = math.prod(mesh.values())
-        arg = sharded_argument_bytes(cfg, shape, mesh)
-        print(f"[dryrun] {arch} x {shape_name} x {mname}: "
-              f"args={arg/1e9:.3f}GB per device (specs)")
-        rec[mname] = {"argument_bytes_per_dev": arg, "chips": chips,
-                      "sharded_program": "not in the port"}
+        pc, dt = trace_partitioned(cfg, shape, mesh)
+        pv = cost_vector(pc)
+        print(f"[dryrun] {arch} x {shape_name} x {mname} (rank 0 of {chips}, "
+              f"fake group, meta): trace {dt:.1f}s")
+        print(f"         counts: args={pc.argument_bytes/1e9:.3f}GB "
+              f"out={pc.output_bytes/1e9:.3f}GB "
+              f"temp={pc.temp_bytes/1e9:.3f}GB (per device)")
+        print(f"         cost: flops={pv['flops']:.3e} bytes={pv['bytes']:.3e} "
+              f"coll={pv['coll']:.3e}")
+        rec[mname] = {
+            "trace_s": dt,
+            "argument_bytes_per_dev": pc.argument_bytes,
+            "output_bytes_per_dev": pc.output_bytes,
+            "temp_bytes_per_dev": pc.temp_bytes,
+            "peak_bytes_per_dev": pc.peak_live_bytes,
+            "rolled_cost": pv,
+            "chips": chips,
+        }
 
     if do_roofline:
-        full_cost = probe_roofline(cfg, shape)
+        pod = rec["pod16x16"]["rolled_cost"]
+        full_cost = probe_roofline(cfg, shape, coll=pod)
         n_act = active_param_count(cfg)
         tokens = (shape.global_batch * shape.seq_len
                   if shape.kind in ("train", "prefill") else shape.global_batch)
@@ -352,7 +445,7 @@ def run_cell(arch: str, shape_name: str, *, do_multipod=True,
         print(f"         roofline ({row.get('name')}): "
               f"compute={rl.compute_s*1e3:.2f}ms "
               f"memory={rl.memory_s*1e3:.2f}ms "
-              f"collective={rl.collective_s*1e3:.2f}ms "
+              f"collective={rl.collective_s*1e3:.2f}ms (pod16x16) "
               f"-> {rl.bottleneck}-bound; useful={rl.useful_ratio:.2f}")
     return rec
 

@@ -4,11 +4,12 @@ fleet graph serving.
 *Training.* The reference builds ``jax`` meshes; the port's sharding rules
 (:mod:`repro_torch.sharding`) read a mesh as a mapping of axis names to
 sizes. :func:`make_host_mesh` is ``{"data": n // model, "model": model}``
-over the visible cards (one on the CPU); :func:`make_production_mesh` is
-the reference's pod layout, ``{"data": 16, "model": 16}`` (with ``"pod":
-2`` in front across two pods). The port runs on one card: under a mapping
-of more than one device ``sharding.shard`` raises, so the production
-mapping gives specs to read, not a run.
+over the process group's world size, or over the visible cards (one on the
+CPU) when no group is initialised; :func:`make_production_mesh` is the
+reference's pod layout, ``{"data": 16, "model": 16}`` (with ``"pod": 2`` in
+front across two pods). :func:`make_device_mesh` turns such a mapping
+into the ``DeviceMesh`` the partitioned program runs on, over the current
+process group (one rank a device).
 
 *Serving.* The reference builds a 1-D ``jax.sharding.Mesh`` over its
 devices; the port's fleet runs over **slots**: a list of ``torch.device``s
@@ -27,11 +28,13 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.plan_cache import DeviceLike, resolve_device
 
-__all__ = ["make_production_mesh", "make_host_mesh", "graph_mesh",
+__all__ = ["make_production_mesh", "make_host_mesh", "make_device_mesh",
+           "graph_mesh",
            "multihost_graph_mesh", "resolve_slots"]
 
 
@@ -43,11 +46,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
 
 def make_host_mesh(model: int = 1, *,
                    device: DeviceLike = None) -> Dict[str, int]:
-    """``{"data": n // model, "model": model}`` over the n visible cards
+    """``{"data": n // model, "model": model}``: n is the world size of the
+    initialised process group (one rank a device), else the visible cards
     (``device`` is ``cuda`` unless the caller names another type; n is 1
     on the CPU)."""
-    kind = resolve_device(device).type
-    n = torch.cuda.device_count() if kind == "cuda" else 1
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        n = dist.get_world_size()
+    else:
+        kind = resolve_device(device).type
+        n = torch.cuda.device_count() if kind == "cuda" else 1
     if model < 1:
         raise ValueError(f"model axis size must be >= 1, got {model}")
     if n % model != 0:
@@ -55,6 +63,27 @@ def make_host_mesh(model: int = 1, *,
             f"cannot build a ({n // model}, {model}) host mesh: {n} "
             f"available device(s) not divisible by model={model}")
     return {"data": n // model, "model": model}
+
+
+def make_device_mesh(sizes: Dict[str, int], *, device: DeviceLike = None):
+    """The ``DeviceMesh`` of the axis sizes ``sizes`` (``{"data": d,
+    "model": m}``, with ``"pod"`` in front where present), in that order,
+    over the current process group: ``init_device_mesh`` on ``device``'s
+    type (``cuda`` unless named; ``meta`` tensors take a ``cpu`` mesh). The
+    group's world size must equal the product of the sizes."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = ("cpu" if device is not None and torch.device(device).type
+            == "meta" else resolve_device(device).type)
+    n = int(np.prod(list(sizes.values()), dtype=int))
+    if not dist.is_initialized():
+        raise RuntimeError(f"make_device_mesh({sizes}): no process group "
+                           f"(torch.distributed.init_process_group first)")
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {sizes} needs {n} ranks, the process group "
+                         f"has {dist.get_world_size()}")
+    return init_device_mesh(kind, tuple(int(v) for v in sizes.values()),
+                            mesh_dim_names=tuple(sizes))
 
 
 def resolve_slots(devices: Sequence[DeviceLike]) -> List[torch.device]:

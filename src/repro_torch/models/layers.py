@@ -4,9 +4,12 @@ initialisation and the MLP.
 Parameters are dicts of tensors; every layer is a pair of ``init_*`` /
 ``apply`` functions. Weights default to bf16; norms, softmax, rotary and
 activations run in fp32 and are cast back to the activation dtype, as in
-the reference (``repro.models.layers``). The reference's ``shard(...)``
-annotation in ``apply_mlp`` is left out: :func:`repro_torch.sharding.shard`
-returns its input unchanged on one card (``lm.py`` keeps its calls).
+the reference (``repro.models.layers``).
+
+In the partitioned program (DTensors on a ``DeviceMesh``) every weight
+goes through :func:`gather_weight` right before its use: the explicit
+FSDP step, an all-gather over the batch axes whose backward is the
+gradient's reduce-scatter.
 
 Every initialiser draws in fp32 from an explicit ``torch.Generator`` on the
 generator's device, then casts. On the ``meta`` device it draws nothing
@@ -20,6 +23,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..sharding import contiguous_stride, local_part, shard
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -141,6 +147,22 @@ _ACTS = {"silu": F.silu,
          "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
+def gather_weight(w: torch.Tensor) -> torch.Tensor:
+    """FSDP's gather of one weight: a DTensor's shards over the batch axes
+    ("pod", "data") all-gathered (``Replicate()`` there), its "model"
+    placement kept; its backward reduce-scatters the gradient back onto
+    those axes. A plain tensor is returned as it is. Without it DTensor's
+    matmul strategy may gather the activations along "data" instead."""
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if n in ("pod", "data") else p
+                 for n, p in zip(names, w.placements))
+    if want == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
 def promote(a: torch.Tensor, b: torch.Tensor):
     """Both operands in their promoted dtype, as ``jnp.dot`` and
     ``jnp.einsum`` take mixed dtypes (``torch.matmul`` refuses them)."""
@@ -149,19 +171,71 @@ def promote(a: torch.Tensor, b: torch.Tensor):
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in the promoted dtype of the two, as ``jnp.dot``."""
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.dot``. A
+    row-parallel product of bf16 DTensors (the contraction split over a
+    mesh dim of more than one rank) goes through :func:`_row_parallel`."""
     a, b = promote(a, b)
+    if isinstance(a, DTensor) and a.dtype == torch.bfloat16:
+        out = _row_parallel(a, b)
+        if out is not None:
+            return out
     return a @ b
+
+
+def _row_parallel(a: DTensor, b: DTensor):
+    """``a @ b`` for bf16 DTensors whose contraction dim is split over mesh
+    dims of more than one rank (``a``'s last dim, ``b``'s first), or None
+    where that is not the case. Each rank multiplies its shards with fp32
+    sums and the partial products are all-reduced in fp32, then rounded
+    to bf16 once: the one-device product's numerics up to the order of its
+    fp32 sum (bf16 partial sums would add a rounding per rank, which can
+    flip an MoE router's near-tie). The products of bf16 values are exact
+    in TF32, so on a card the local product may use it."""
+    nd = a.dim() - 1
+    mesh = a.device_mesh
+    red, out_pl = [], []
+    for i, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        a_k = isinstance(pa, Shard) and pa.dim == nd
+        b_k = isinstance(pb, Shard) and pb.dim == 0
+        if a_k != b_k or not (isinstance(pb, Replicate) or b_k):
+            return None
+        if a_k:
+            if mesh.size(i) > 1:
+                red.append(i)
+            out_pl.append(Partial())
+        else:
+            out_pl.append(pa)
+    if not red:
+        return None
+    al = a.to_local()
+    bl = local_part(b)
+    cuda = al.is_cuda
+    prev = torch.backends.cuda.matmul.allow_tf32 if cuda else None
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = al.float() @ bl.float()
+    finally:
+        if cuda:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+    out = DTensor.from_local(out, mesh, out_pl, shape=torch.Size(shape),
+                             stride=contiguous_stride(shape))
+    whole_pl = [Replicate() if isinstance(p, Partial) else p for p in out_pl]
+    return out.redistribute(mesh, whole_pl).to(a.dtype)
+
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str = "silu",
               gated: bool = True) -> torch.Tensor:
     """``act(x @ wg) * (x @ wi) @ wo`` (gated) or ``act(x @ wi) @ wo``; the
-    activation in fp32, cast back to ``x.dtype``."""
+    activation in fp32, cast back to ``x.dtype``; the hidden layer on
+    "model", as the reference constrains it."""
     a = _ACTS[act]
-    h = dot(x, p["wi"])
+    h = dot(x, gather_weight(p["wi"]))
     if gated:
-        h = a(dot(x, p["wg"]).float()).to(x.dtype) * h
+        h = a(dot(x, gather_weight(p["wg"])).float()).to(x.dtype) * h
     else:
         h = a(h.float()).to(x.dtype)
-    return dot(h, p["wo"])
+    h = shard(h, *(["batch"] + [None] * (h.dim() - 2) + ["model"]))
+    return dot(h, gather_weight(p["wo"]))

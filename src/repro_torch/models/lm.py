@@ -19,23 +19,38 @@ Decode state is updated in place: ``decode_step`` writes each layer's
 cache entry through a view of the stacked cache, and ``reset_decode_slot``
 zeroes a slot's recurrent state and sets its start. ``DecodeState.pos`` is
 a host int. Use :meth:`DecodeState.clone` to keep an earlier state.
+
+The partitioned program is the same functions on DTensors under a
+``DeviceMesh`` context (``sharding.set_mesh_ctx``): parameters placed by
+``param_specs``, the decode state by ``cache_specs``, the batch on the
+batch axes (``sharding.distribute``). Each entry point then runs under
+DTensor's implicit replication (``sharding.partitioned``), and so does
+each remat unit, whose recompute runs in the backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.plan_cache import DeviceLike, resolve_device
-from ..sharding import shard
+from ..sharding import (cache_specs, contiguous_stride, device_mesh_ctx,
+                        get_mesh_ctx, local_part, mesh_of, on_batch_axes,
+                        partitioned, placements, shard, shard_offset,
+                        use_mesh)
 from . import attention as A
 from . import moe as M
 from . import ssm as S
 from .layers import (PARAM_DTYPE, apply_mlp, dense_init, dot, embed_init,
-                     init_mlp, is_meta, layer_norm, rms_norm, to_torch)
+                     gather_weight, init_mlp, is_meta, layer_norm, rms_norm,
+                     to_torch)
 
 __all__ = ["init_lm", "param_count", "config_param_count", "params_from_jax",
            "embed_inputs", "forward_trunk", "lm_logits", "lm_forward",
@@ -69,18 +84,92 @@ def _leaves(tree):
 
 def _at(tree, idx):
     """Views of every leaf at leading index ``idx``."""
-    return _tree_map(lambda t: t[idx], tree)
+    depth = len(idx) if isinstance(idx, tuple) else 1
+    return _tree_map(lambda t: _index_lead(_lead_whole(t, depth), idx, depth),
+                     tree)
+
+
+def _unbind_lead(t, depth: int):
+    """``t``'s leading ``depth`` dims flattened and unbound. A DTensor
+    (those dims replicated) is unbound in its local shard, each part put
+    back with its placements shifted (a DTensor view of a parameter fails
+    under ``torch.inference_mode``; the backward is the same stack)."""
+    if not isinstance(t, DTensor):
+        return t.flatten(0, depth - 1).unbind(0)
+    pl = [Shard(p.dim - depth) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape, stride = t.shape[depth:], t.stride()[depth:]
+    return tuple(DTensor.from_local(x, t.device_mesh, pl, shape=shape,
+                                    stride=stride)
+                 for x in t.to_local().flatten(0, depth - 1).unbind(0))
+
+
+def _index_lead(t, idx, depth: int):
+    """``t[idx]`` over ``t``'s leading ``depth`` dims. A DTensor (those dims
+    replicated) is indexed in its local shard and put back with its
+    placements shifted: a DTensor op on a parameter fails under
+    ``torch.inference_mode``."""
+    if not isinstance(t, DTensor):
+        return t[idx]
+    loc = t.to_local()[idx]
+    pl = [Shard(p.dim - depth) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape = t.shape[depth:]
+    return DTensor.from_local(loc, t.device_mesh, pl, shape=shape,
+                              stride=t.stride()[depth:])
+
+
+def _lead_whole(t, depth: int):
+    """``t`` with its leading ``depth`` (stack) dims whole on every rank: a
+    DTensor sharded there is gathered over those mesh dims first (the
+    reference's rules put a stacked shared expert's layer dim on "model");
+    anything else as it is."""
+    if not isinstance(t, DTensor) or not any(
+            isinstance(p, Shard) and p.dim < depth for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim < depth else p
+        for p in t.placements])
 
 
 def _put(store: Dict[str, Any], key: str, lead: Tuple[int, ...], idx,
          value) -> None:
     """``store[key][idx] = value``, allocating ``store[key]`` with leading
     dims ``lead`` on the first put (one layer at a time: never a list of
-    layers stacked at the end)."""
+    layers stacked at the end). A DTensor cache entry is first placed as
+    ``cache_specs`` places it, and the stack holds each rank's local
+    shards (DTensor has no rule for a copy into an indexed view)."""
+    if isinstance(_leaves(value)[0], DTensor):
+        value = _place_cache(key, value)
+        if key not in store:
+            store[key] = _tree_map(lambda t: _stacked(t, lead), value)
+        _tree_map(lambda dst, src: dst.to_local()[idx].copy_(src.to_local()),
+                  store[key], value)
+        return
     if key not in store:
         store[key] = _tree_map(lambda t: t.new_empty(lead + tuple(t.shape)),
                                value)
     _tree_map(lambda dst, src: dst[idx].copy_(src), store[key], value)
+
+
+def _place_cache(key: str, value):
+    """A cache entry (``KVCache`` / ``MambaCache`` of DTensors) redistributed
+    to the placements ``cache_specs`` gives it."""
+    mesh = _leaves(value)[0].device_mesh
+    specs = cache_specs({key: value}, mesh)[key]
+    return _tree_map(lambda t, sp: t.redistribute(mesh, placements(sp, mesh)),
+                     value, specs)
+
+
+def _stacked(t: DTensor, lead: Tuple[int, ...]) -> DTensor:
+    """An uninitialised DTensor of ``lead + t.shape``, the leading dims
+    replicated, each rank holding ``lead + its local shape``."""
+    pl = [Shard(p.dim + len(lead)) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape = lead + tuple(t.shape)
+    loc = t.to_local().new_empty(lead + tuple(t.to_local().shape))
+    return DTensor.from_local(loc, t.device_mesh, pl, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def _stack(fn, n: int):
@@ -289,13 +378,23 @@ def _dense_block(cfg: ArchConfig, p, h, *, local=False, q_chunk=512,
                               kv_chunk=kv_chunk, return_kv=return_kv,
                               **_attn_kwargs(cfg, local))
     attn_out, kv = out if return_kv else (out, None)
+    attn_out = _resid(attn_out)
     if cfg.post_block_norm:
         attn_out = _norm(cfg, p["ln1_post"], attn_out)
     h = h + attn_out
     mlp_out, aux = _ffn(cfg, p, _norm(cfg, p["ln2"], h))
+    mlp_out = _resid(mlp_out)
     if cfg.post_block_norm:
         mlp_out = _norm(cfg, p["ln2_post"], mlp_out)
     return h + mlp_out, aux, kv
+
+
+def _resid(x):
+    """A sublayer's output as the residual stream holds it: batch on the
+    batch axes, replicated elsewhere. In the partitioned program this is
+    the tensor-parallel all-reduce of a row-parallel product, made once
+    here rather than by each op that reads a pending sum."""
+    return shard(x, "batch", None, None)
 
 
 def _mamba_block(cfg: ArchConfig, p, h, chunk=128, return_state=False):
@@ -304,7 +403,7 @@ def _mamba_block(cfg: ArchConfig, p, h, chunk=128, return_state=False):
                            head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
                            chunk=chunk, return_state=return_state)
     out, mc = out if return_state else (out, None)
-    return h + out, mc
+    return h + _resid(out), mc
 
 
 def _shared_params(shared, lora):
@@ -331,7 +430,11 @@ def _sinusoid(T: int, D: int, device) -> torch.Tensor:
 def embed_inputs(cfg: ArchConfig, params, inputs) -> torch.Tensor:
     """tokens [B,T] int (token frontend) or embeddings [B,T,D] (stub)."""
     if cfg.frontend == "token":
-        h = params["embed"][inputs.long()]
+        table = params["embed"]
+        if isinstance(table, DTensor):
+            h = _vocab_parallel_lookup(gather_weight(table), inputs.long())
+        else:
+            h = table[inputs.long()]
         if cfg.name.startswith("gemma"):
             h = (h.float() * (cfg.d_model ** 0.5)).to(h.dtype)
     else:
@@ -342,13 +445,40 @@ def embed_inputs(cfg: ArchConfig, params, inputs) -> torch.Tensor:
     return shard(h, "batch", None, None)
 
 
+def _vocab_parallel_lookup(table: DTensor, idx: DTensor) -> DTensor:
+    """``table[idx]`` for a vocab-sharded ("model") ``[V, D]`` table on local
+    shards (DTensor's embedding rule takes its gradient as a pending sum it
+    cannot convert): each rank looks up the rows it holds, zero elsewhere,
+    and the rows are summed over the vocab's mesh dims (one all-reduce;
+    one value and zeros, so the same bits as the index). The table's
+    gradient is a pending sum over the batch axes, which its FSDP gather
+    reduce-scatters."""
+    mesh = table.device_mesh
+    vd = [i for i, p in enumerate(table.placements)
+          if isinstance(p, Shard) and p.dim == 0]
+    loc = local_part(table)
+    v0 = shard_offset(table, 0)
+    il = idx.redistribute(mesh, [Replicate() if i in vd else p for i, p
+                                 in enumerate(idx.placements)]).to_local()
+    j = il - v0
+    mine = (j >= 0) & (j < loc.shape[0])
+    rows = loc[j.clamp(0, loc.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    pl = [Partial() if i in vd else p for i, p in enumerate(idx.placements)]
+    shape = tuple(idx.shape) + (table.shape[1],)
+    return shard(DTensor.from_local(rows, mesh, pl, shape=torch.Size(shape),
+                                    stride=contiguous_stride(shape)),
+                 "batch", None, None)
+
+
 def _unstack(stack, depth: int = 1):
     """Per-index trees of a layer-stacked tree, over its leading ``depth``
     dims flattened (index ``i * n2 + j`` for ``[n1, n2, ...]``): one
     ``unbind`` per leaf. A gradient into a stacked leaf is then one stack in
     the backward; a view ``t[i]`` a layer (``_at``) would give each layer's
     backward a zero-filled tensor of the whole leaf to add into it."""
-    parts = _tree_map(lambda t: t.flatten(0, depth - 1).unbind(0), stack)
+    parts = _tree_map(lambda t: _unbind_lead(_lead_whole(t, depth), depth),
+                      stack)
     n = len(_leaves(parts)[0])
     return [_tree_map(lambda p: p[i], parts) for i in range(n)]
 
@@ -370,7 +500,7 @@ def _trunk(cfg: ArchConfig, params, h, *, q_chunk, kv_chunk, ssd_chunk,
 
     def unit(fn, *args):
         if ckpt:   # nothing on the path draws randomness: no RNG stash
-            return checkpoint(fn, *args, use_reentrant=False,
+            return checkpoint(_in_partitioned(fn), *args, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(*args)
 
@@ -443,6 +573,37 @@ def _trunk(cfg: ArchConfig, params, h, *, q_chunk, kv_chunk, ssd_chunk,
     return h, aux
 
 
+def _entry(fn):
+    """An entry point ``fn(cfg, params, ...)`` of the program: on
+    distributed ``params`` it runs under their ``DeviceMesh`` (unless a
+    context is set) and :func:`sharding.partitioned`, a plain batch tensor
+    argument put on the batch axes; nothing changes otherwise."""
+    @functools.wraps(fn)
+    def run(cfg, params, *args, **kwargs):
+        mesh = None if get_mesh_ctx() is not None else mesh_of(params)
+        with use_mesh(mesh), partitioned():
+            dm = device_mesh_ctx()
+            if dm is not None:   # a whole batch: each rank's rows
+                args = tuple(on_batch_axes(a, dm)
+                             if isinstance(a, torch.Tensor) else a
+                             for a in args)
+            return fn(cfg, params, *args, **kwargs)
+    return run
+
+
+def _in_partitioned(fn):
+    """``fn`` run under the current mesh context and
+    :func:`sharding.partitioned` (a remat unit's recompute runs in the
+    backward, outside the entry point's context)."""
+    mesh = get_mesh_ctx()
+
+    @functools.wraps(fn)
+    def run(*args):
+        with use_mesh(mesh), partitioned():
+            return fn(*args)
+    return run
+
+
 def forward_trunk(cfg: ArchConfig, params, h, *, remat=True, q_chunk=512,
                   kv_chunk=512, ssd_chunk=128):
     """[B, T, D] -> ([B, T, D] after the final norm, aux_loss)."""
@@ -453,8 +614,8 @@ def forward_trunk(cfg: ArchConfig, params, h, *, remat=True, q_chunk=512,
 
 def _head_weights(cfg: ArchConfig, params):
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["head"]
+        return gather_weight(params["embed"]).T
+    return gather_weight(params["head"])
 
 
 def _logits(cfg: ArchConfig, h, W) -> torch.Tensor:
@@ -470,6 +631,7 @@ def lm_logits(cfg: ArchConfig, params, h) -> torch.Tensor:
                            + ["model"]))
 
 
+@_entry
 def lm_forward(cfg: ArchConfig, params, inputs, *, remat=False,
                **kw) -> torch.Tensor:
     """Full logits [B, T, V] — tests / small models only."""
@@ -478,6 +640,52 @@ def lm_forward(cfg: ArchConfig, params, inputs, *, remat=False,
     return lm_logits(cfg, params, h)
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor whose vocab dim is split over more
+    than one rank."""
+    if not isinstance(logits, DTensor):
+        return False
+    mesh = logits.device_mesh
+    return any(isinstance(p, Shard) and p.dim == logits.dim() - 1
+               and mesh.size(i) > 1 for i, p in enumerate(logits.placements))
+
+
+def _vocab_parallel_lse_gold(logits: DTensor, labels: DTensor):
+    """logsumexp over a vocab-sharded ``[B, T, V]`` DTensor and each label's
+    logit, on local shards (DTensor's ``gather`` takes a sharded vocab for
+    an embedding): the max, the sum of exponentials and the label's logit
+    (held by one rank, 0 elsewhere) are reduced over the vocab's mesh dims
+    (an all-reduce each). Returns two ``[B, T]`` DTensors, batch placed as
+    ``logits``', replicated elsewhere."""
+    mesh = logits.device_mesh
+    vdim = logits.dim() - 1
+    vd = [i for i, p in enumerate(logits.placements)
+          if isinstance(p, Shard) and p.dim == vdim]
+    out_pl = [Replicate() if i in vd else p
+              for i, p in enumerate(logits.placements)]
+    loc = logits.to_local()
+    v0 = shard_offset(logits, vdim)
+    yl = labels.redistribute(mesh, out_pl).to_local()
+
+    def reduced(t, op):
+        part = DTensor.from_local(
+            t, mesh, [Partial(op) if i in vd else p
+                      for i, p in enumerate(out_pl)])
+        return part.redistribute(mesh, out_pl)
+
+    # the max only shifts the exponentials: no gradient through it
+    mx = reduced(loc.detach().amax(-1), "max")
+    sumexp = reduced(torch.exp(loc - mx.to_local()[..., None]).sum(-1), "sum")
+    lse = mx + torch.log(sumexp)
+    idx = yl.clamp(min=0) - v0
+    mine = (idx >= 0) & (idx < loc.shape[-1])
+    g = torch.gather(loc, -1, idx.clamp(0, loc.shape[-1] - 1)[..., None])
+    gold = reduced(torch.where(mine, g[..., 0], torch.zeros_like(g[..., 0])),
+                   "sum")
+    return lse, gold
+
+
+@_entry
 def lm_loss(cfg: ArchConfig, params, inputs, labels, *, remat=True,
             loss_chunk=512, aux_weight=0.01, **kw):
     """Next-token CE, seq-chunked so [B, Tc, V] logits never exceed a
@@ -501,8 +709,11 @@ def lm_loss(cfg: ArchConfig, params, inputs, labels, *, remat=True,
     for s in range(0, T, c):
         logits = shard(_logits(cfg, h[:, s:s + c], W), "batch", None, "model")
         yc = labels[:, s:s + c].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc.clamp(min=0)[..., None])[..., 0]
+        if _vocab_sharded(logits):
+            lse, gold = _vocab_parallel_lse_gold(logits, yc)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc.clamp(min=0)[..., None])[..., 0]
         valid = (yc >= 0).float()
         tot = tot + torch.sum((lse - gold) * valid)
         cnt = cnt + torch.sum(valid)
@@ -551,13 +762,22 @@ def pad_prefill_caches(cfg: ArchConfig, state: DecodeState, max_seq: int
                        ) -> DecodeState:
     """Grow prefill KV caches (length T) to the decode budget ``max_seq``."""
     caches = dict(state.caches)
+
+    def grow(t, pad):
+        if not isinstance(t, DTensor):
+            return F.pad(t, (0, 0, 0, 0, 0, pad))
+        # the sequence dim is replicated: pad each rank's shard
+        loc = F.pad(t.to_local(), (0, 0, 0, 0, 0, pad))
+        shape = t.shape[:-3] + (t.shape[-3] + pad,) + t.shape[-2:]
+        return DTensor.from_local(loc, t.device_mesh, t.placements,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
     for key in ("kv", "kv_dense"):
         if key in caches:
             k = caches[key].k
             pad = max_seq - k.shape[k.dim() - 3]      # [..., S, KH, Dh]
-            caches[key] = A.KVCache(
-                *(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-                  for t in caches[key]))
+            caches[key] = A.KVCache(*(grow(t, pad) for t in caches[key]))
     return DecodeState(caches, state.pos, state.start)
 
 
@@ -605,9 +825,12 @@ def track_slot_starts(state: DecodeState, batch: int) -> DecodeState:
     before :func:`reset_decode_slot`); all slots start at position 0."""
     if state.start is not None:
         return state
-    dev = _leaves(state.caches)[0].device
+    leaf = _leaves(state.caches)[0]
+    if isinstance(leaf, DTensor):   # a plain tensor, whole on every rank
+        leaf = leaf.to_local()
     return DecodeState(state.caches, state.pos,
-                       torch.zeros((batch,), dtype=torch.int32, device=dev))
+                       torch.zeros((batch,), dtype=torch.int32,
+                                   device=leaf.device))
 
 
 def reset_decode_slot(cfg: ArchConfig, state: DecodeState, slot: int
@@ -631,14 +854,30 @@ def reset_decode_slot(cfg: ArchConfig, state: DecodeState, slot: int
                       ("mamba_tail", 1)):
         if key in caches:
             for t in caches[key]:
-                t.select(axis, slot).zero_()
-    state.start[slot] = state.pos
+                _local_slot(t, axis, slot).zero_()
+    _local_slot(state.start, 0, slot).fill_(state.pos)
     return state
+
+
+def _local_slot(t, axis: int, slot: int) -> torch.Tensor:
+    """Batch slot ``slot`` of ``t`` along ``axis`` as a writable view: of the
+    tensor, or of a DTensor's local shard on the rank that holds the slot
+    (an empty view elsewhere). DTensor has no rule for a write into one
+    index of a sharded dim."""
+    if not isinstance(t, DTensor):
+        return t.select(axis, slot)
+    loc = t.to_local()
+    size = loc.shape[axis]
+    lo = shard_offset(t, axis)
+    if lo <= slot < lo + size:
+        return loc.select(axis, slot - lo)
+    return loc.narrow(axis, 0, 0)
 
 
 # ---------------------------------------------------------------------------
 # prefill and decode (serving)
 # ---------------------------------------------------------------------------
+@_entry
 def prefill_forward(cfg: ArchConfig, params, inputs, *, q_chunk=512,
                     kv_chunk=512, ssd_chunk=128):
     """Serving prefill: returns (last-token logits [B, V], DecodeState).
@@ -671,10 +910,12 @@ def _attn_decode_block(cfg, p, h, kv, pos, tables, *, local=False,
         n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
         rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap, window=window,
         scale=cfg.attn_scale, start=start, tables=tables[window])
+    attn_out = _resid(attn_out)
     if cfg.post_block_norm:
         attn_out = _norm(cfg, p["ln1_post"], attn_out)
     h = h + attn_out
     mlp_out, _ = _ffn(cfg, p, _norm(cfg, p["ln2"], h))
+    mlp_out = _resid(mlp_out)
     if cfg.post_block_norm:
         mlp_out = _norm(cfg, p["ln2_post"], mlp_out)
     return h + mlp_out
@@ -683,9 +924,10 @@ def _attn_decode_block(cfg, p, h, kv, pos, tables, *, local=False,
 def _mamba_decode_block(cfg, p, h, mc):
     out, _ = S.mamba2_decode(p["mamba"], _norm(cfg, p["ln1"], h), mc,
                              head_dim=cfg.ssm_head_dim, state=cfg.ssm_state)
-    return h + out
+    return h + _resid(out)
 
 
+@_entry
 def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
                 state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
     """One-token step for the whole batch. tokens: [B, 1] -> logits [B, V].

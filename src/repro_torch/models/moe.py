@@ -6,7 +6,11 @@ reference (``repro.models.moe``):
 * ``moe_capacity`` — sort-based capacity dispatch with static shapes and
   dense per-expert einsums; with ``DISPATCH_GROUPS > 1`` the tokens are
   split into groups with per-group capacity (the reference's ``vmap`` over
-  groups is a batch dimension here; there is no sharding).
+  groups is a batch dimension here). In the partitioned program (DTensors
+  on a ``DeviceMesh``) it takes the reference's constraints: groups on
+  "data", experts on "model" (EP), and the one resharding between them;
+  the dispatch's sort, scatter and ``index_add_`` have no DTensor rule
+  and run on each rank's local groups.
 * ``moe_block``    — the paper's technique: tokens are degree-sorted by
   expert id, block-partitioned into fixed ``m_tile``-row blocks with one
   int32 metadata word per block, and multiplied by the grouped GEMM K4
@@ -23,11 +27,14 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from ..core.plan_cache import DeviceLike, resolve_device
 from ..kernels.grouped_matmul import grouped_matmul_in_range
 from ..kernels.ops import grouped_matmul_blocked
-from .layers import (PARAM_DTYPE, apply_mlp, dense_init, init_mlp, normal,
-                     promote, to_torch)
+from ..sharding import local_part, shard
+from .layers import (PARAM_DTYPE, apply_mlp, dense_init, gather_weight,
+                     init_mlp, normal, promote, to_torch)
 
 __all__ = ["DISPATCH_GROUPS", "init_moe", "params_from_jax", "moe_capacity",
            "moe_block", "block_dispatch", "aux_load_balance_loss"]
@@ -70,7 +77,7 @@ def params_from_jax(p: Dict, device: DeviceLike = None) -> Dict:
 
 def _route(p, x2d: torch.Tensor, top_k: int, normalize: bool):
     """x2d: [T, D] -> (weights [T, k] f32, ids [T, k] int64, probs [T, E])."""
-    logits = x2d.float() @ p["router"].float()
+    logits = x2d.float() @ gather_weight(p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.topk(probs, top_k, dim=-1)
     if normalize:
@@ -132,10 +139,11 @@ def _expert_ffn(xe, p, spec: str):
     """The gated expert FFN as einsums over ``xe`` (``spec`` names xe's
     axes, e.g. ``"ecd"``); silu in fp32, cast back to h's dtype."""
     out_spec = spec[:-1]
-    h = torch.einsum(f"{spec},edf->{out_spec}f", *promote(xe, p["wi"]))
-    g = torch.einsum(f"{spec},edf->{out_spec}f", *promote(xe, p["wg"]))
+    wi, wg, wo = (gather_weight(p[k]) for k in ("wi", "wg", "wo"))
+    h = torch.einsum(f"{spec},edf->{out_spec}f", *promote(xe, wi))
+    g = torch.einsum(f"{spec},edf->{out_spec}f", *promote(xe, wg))
     h = F.silu(g.float()).to(h.dtype) * h
-    return torch.einsum(f"{out_spec}f,efd->{out_spec}d", *promote(h, p["wo"]))
+    return torch.einsum(f"{out_spec}f,efd->{out_spec}d", *promote(h, wo))
 
 
 def moe_capacity(p, x: torch.Tensor, *, top_k: int, n_experts: int,
@@ -145,12 +153,14 @@ def moe_capacity(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     B, T, D = x.shape
     xt = x.reshape(B * T, D)
     n_tok = B * T
+    if isinstance(xt, DTensor):
+        return _capacity_partitioned(p, xt, B=B, T=T, top_k=top_k,
+                                     n_experts=n_experts,
+                                     capacity_factor=capacity_factor,
+                                     normalize=normalize, act=act)
     w, ids, probs = _route(p, xt, top_k, normalize)
 
-    G = (DISPATCH_GROUPS
-         if (DISPATCH_GROUPS and n_tok % DISPATCH_GROUPS == 0
-             and n_tok // DISPATCH_GROUPS >= 64)
-         else 1)
+    G = _groups(n_tok)
     tl = n_tok // G
     cap = int(capacity_factor * tl * top_k / n_experts)
     cap = max(8, ((cap + 7) // 8) * 8)
@@ -184,6 +194,103 @@ def moe_capacity(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     if "shared" in p:
         out = out + apply_mlp(p["shared"], xt, act=act)
     return out.reshape(B, T, D), aux_load_balance_loss(probs, ids, n_experts)
+
+
+def _from_local(t: torch.Tensor, like: DTensor, placements) -> DTensor:
+    """``t`` (this rank's even shard) as a DTensor on ``like``'s mesh."""
+    return DTensor.from_local(t, like.device_mesh, placements)
+
+
+def _groups(n_tok: int) -> int:
+    """Dispatch groups for ``n_tok`` tokens (see ``DISPATCH_GROUPS``)."""
+    return (DISPATCH_GROUPS
+            if (DISPATCH_GROUPS and n_tok % DISPATCH_GROUPS == 0
+                and n_tok // DISPATCH_GROUPS >= 64)
+            else 1)
+
+
+def _capacity_partitioned(p, xt: DTensor, *, B, T, top_k, n_experts,
+                          capacity_factor, normalize, act):
+    """``moe_capacity`` on DTensors, with the reference's constraints.
+
+    The router runs on each rank's token rows (its softmax and top-k are
+    row by row) and the aux loss sums each rank's rows, reduced over the
+    batch axes. G > 1: the groups on "data"; each rank dispatches its own
+    groups (the sort, the scatter and the combine's ``index_add_`` have no
+    DTensor rule: they run on ``to_local()`` and go back by
+    ``from_local``, each group's rows exactly as on one device), the
+    dispatched rows are resharded to experts on "model" ("the one
+    resharding"), the expert FFN runs on each rank's experts and the
+    outputs go back to the groups on "data" before the combine. G == 1
+    (decode-sized token counts): one dispatch over every token, so the
+    tokens are gathered over the batch axes first and the dispatch is the
+    same on every rank."""
+    mesh = xt.device_mesh
+    D = xt.shape[-1]
+    n_tok = B * T
+    G = _groups(n_tok)
+    tl = n_tok // G
+    cap = int(capacity_factor * tl * top_k / n_experts)
+    cap = max(8, ((cap + 7) // 8) * 8)
+    rep = [Replicate()] * mesh.ndim
+    tok_pl = xt.placements
+    part = [Partial() if isinstance(q, Shard) else q for q in tok_pl]
+    # routing on this rank's rows (the same on every "model" rank); the
+    # router's gradient is a pending sum over the batch axes
+    w, ids, probs = _route({"router": local_part(gather_weight(p["router"]))},
+                           xt.to_local(), top_k, normalize)
+    me = DTensor.from_local(probs.sum(0) / n_tok, mesh, part)
+    ce = DTensor.from_local(
+        (ids[:, 0, None] == torch.arange(n_experts, device=ids.device)
+         ).float().sum(0) / n_tok, mesh, part)
+    aux = n_experts * torch.sum(me.redistribute(mesh, rep)
+                                * ce.redistribute(mesh, rep))
+    w, ids = (DTensor.from_local(t, mesh, tok_pl) for t in (w, ids))
+    if G == 1:
+        xl = xt.redistribute(mesh, rep).to_local()
+        il = ids.redistribute(mesh, rep).to_local()
+        wl = w.redistribute(mesh, rep).to_local()
+        xe, slot, flat_t = _dispatch_group(xl, il, top_k=top_k,
+                                           n_experts=n_experts, cap=cap)
+        xe = _from_local(xe, xt, rep).reshape(n_experts, cap, D)
+        xe = shard(xe, "model", None, None)
+        ye = _expert_ffn(xe, p, "ecd").reshape(n_experts * cap, D)
+        ye = shard(ye, None, None).to_local()
+        ye = torch.cat([ye, ye.new_zeros((1, D))], dim=0)
+        yt = ye[slot] * wl.reshape(-1)[:, None].to(ye.dtype)
+        out = torch.zeros((xl.shape[0], D), dtype=torch.float32,
+                          device=xl.device)
+        out.index_add_(0, flat_t, yt.float())
+        out = _from_local(out, xt, rep).redistribute(mesh, tok_pl)
+    else:
+        xg = shard(xt.reshape(G, tl, D), "data", None, None)
+        gpl = xg.placements
+        xl = xg.to_local()
+        il = ids.reshape(G, tl, top_k).redistribute(mesh, gpl).to_local()
+        wl = w.reshape(G, tl, top_k).redistribute(mesh, gpl).to_local()
+        Gl = xl.shape[0]
+        xe, slot, flat_t = _dispatch_group(xl, il, top_k=top_k,
+                                           n_experts=n_experts, cap=cap)
+        xe = _from_local(xe, xt, gpl).reshape(G, n_experts, cap, D)
+        # the one resharding: groups on "data" -> experts on "model"
+        xe = shard(xe.transpose(0, 1), "model", "data", None, None)
+        ye = _expert_ffn(xe, p, "egcd").to(xt.dtype)
+        ye = shard(ye, "model", "data", None, None)
+        # back to the groups on "data" (kept in bf16) before the combine
+        ye = shard(ye.transpose(0, 1), "data", None, None, None)
+        ye = ye.reshape(G, n_experts * cap, D).to_local()
+        ye = torch.cat([ye, ye.new_zeros((Gl, 1, D))], dim=1)
+        g_idx = torch.arange(Gl, device=xl.device)[:, None]
+        yt = ye[g_idx, slot] * wl.reshape(Gl, -1)[..., None].to(ye.dtype)
+        out = torch.zeros((Gl * tl, D), dtype=torch.float32,
+                          device=xl.device)
+        out.index_add_(0, (g_idx * tl + flat_t).reshape(-1),
+                       yt.float().reshape(-1, D))
+        out = _from_local(out, xt, gpl).redistribute(mesh, tok_pl)
+    out = out.to(xt.dtype)
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], xt, act=act)
+    return out.reshape(B, T, D), aux
 
 
 # ---------------------------------------------------------------------------

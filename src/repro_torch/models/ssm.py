@@ -9,6 +9,15 @@ Recurrence convention: h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t (x) x_t,
 y_t = C_t . h_t + D * x_t, with A negative (A = -exp(A_log)). The state is
 laid out [b, H, N, P] (heads, state, head_dim), as the reference's code
 builds it and its decode cache holds it.
+
+In the partitioned program (DTensors on a ``DeviceMesh``) the SSM heads
+are on "model", as ``cache_specs`` places the decode state: ``w_in``'s
+output is gathered over "model" (z, xBC and dt do not split along its
+shards), the depthwise conv runs over every channel, and the SSD scan and
+its state run on each rank's heads and batch rows (``to_local()``; no op
+of the scan mixes heads, and B and C are shared); the gated output goes
+back as a DTensor sharded over "model" for the norm and the row-parallel
+``w_out``.
 """
 from __future__ import annotations
 
@@ -17,8 +26,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .layers import PARAM_DTYPE, dense_init, dot, is_meta, normal, rms_norm
+from ..sharding import local_part, mesh_coord, shard, shard_offset
+from .layers import (PARAM_DTYPE, dense_init, dot, gather_weight, is_meta,
+                     normal, rms_norm)
 
 
 def init_mamba2(generator: Optional[torch.Generator], d_model: int,
@@ -136,6 +148,42 @@ def _split_in(zxbcdt, d_inner, state):
                        dim=-1)
 
 
+def _local_inputs(zx, p, n_heads: int):
+    """The mixer's operands as local tensors: ``(zx, conv_w, conv_b,
+    dt_bias, A_log, D, heads, out_placements)``. One device: the tensors
+    themselves, every head. Partitioned: ``zx`` gathered over "model" and
+    each rank's shard of it, the small parameters whole, all with their
+    gradients pending sums over the mesh (each rank reads them for its
+    batch rows and heads); ``heads`` is the rank's slice of the heads
+    ("model" divides them, else all) and ``out_placements`` the
+    placements of a ``[B, T, d_inner]`` output of those heads."""
+    names = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+    if not isinstance(zx, DTensor):
+        return (zx, *(p[k] for k in names), slice(0, n_heads), None)
+    mesh = zx.device_mesh
+    zx = shard(zx, "batch", *([None] * (zx.dim() - 1)))
+    r, m = mesh_coord(mesh, "model")
+    if n_heads % m:
+        r, m = 0, 1
+    hl = n_heads // m
+    allp = ("pod", "data", "model")
+    rep = [Replicate()] * mesh.ndim
+    small = [local_part(p[k].redistribute(mesh, rep), allp) for k in names]
+    out_pl = list(zx.placements)
+    if m > 1:
+        out_pl[list(mesh.mesh_dim_names).index("model")] = Shard(zx.dim() - 1)
+    return (local_part(zx, allp), *small, slice(r * hl, (r + 1) * hl),
+            out_pl)
+
+
+def _to_global(y, like: DTensor, placements):
+    """A local ``[..., d_inner_local]`` result as a DTensor at
+    ``placements`` on ``like``'s mesh (None: ``y`` as it is)."""
+    if placements is None:
+        return y
+    return DTensor.from_local(y, like.device_mesh, placements)
+
+
 def mamba2_forward(p, x, *, head_dim: int, state: int, chunk: int = 128,
                    return_state: bool = False):
     """Full-sequence Mamba2 block. x: [B, T, D] -> [B, T, D].
@@ -152,49 +200,89 @@ def mamba2_forward(p, x, *, head_dim: int, state: int, chunk: int = 128,
     if return_state and T < K - 1:
         raise ValueError(f"a prompt of {T} tokens is shorter than the conv "
                          f"history of {K - 1} a Mamba2 decode cache holds")
-    z, xbc_pre, dt = _split_in(dot(x, p["w_in"]), d_inner, state)
-    xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
+    zx_g = dot(x, gather_weight(p["w_in"]))
+    zx, conv_w, conv_b, dt_bias, A_log, Dp, hs, out_pl = _local_inputs(
+        zx_g, p, H)
+    Bl = zx.shape[0]
+    z, xbc_pre, dt = _split_in(zx, d_inner, state)
+    xbc = _causal_conv(xbc_pre, conv_w, conv_b)
     xbc = F.silu(xbc.float())
     xs, Bs, Cs = torch.split(xbc, [d_inner, state, state], dim=-1)
-    dtv = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = xs.reshape(Bsz, T, H, head_dim)
+    dsl = slice(hs.start * head_dim, hs.stop * head_dim)
+    Hl = hs.stop - hs.start
+    dtv = F.softplus(dt[..., hs].float() + dt_bias[hs])
+    A = -torch.exp(A_log[hs])
+    xh = xs[..., dsl].reshape(Bl, T, Hl, head_dim)
     y, h_fin = ssd_chunked(xh, dtv, A, Bs, Cs, chunk=chunk)
-    y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(Bsz, T, d_inner) * F.silu(z.float())
-    y = rms_norm(y.to(x.dtype), p["norm_w"])
-    out = dot(y, p["w_out"])
+    y = y + Dp[hs][None, None, :, None] * xh
+    y = y.reshape(Bl, T, Hl * head_dim) * F.silu(z[..., dsl].float())
+    y = _to_global(y.to(x.dtype), zx_g, out_pl)
+    y = rms_norm(y, p["norm_w"])
+    out = dot(y, gather_weight(p["w_out"]))
     if return_state:
-        return out, MambaCache(xbc_pre[:, T - (K - 1):, :], h_fin)
+        conv = xbc_pre[:, T - (K - 1):, :]
+        if out_pl is not None:
+            mesh = zx_g.device_mesh
+            conv = DTensor.from_local(conv, mesh, shard(
+                zx_g, "batch", None, None).placements)
+            st_pl = [Shard(1) if isinstance(q, Shard) and q.dim == 2 else q
+                     for q in out_pl]
+            h_fin = DTensor.from_local(h_fin, mesh, st_pl)
+        return out, MambaCache(conv, h_fin)
     return out
 
 
 def mamba2_decode(p, x, cache: MambaCache, *, head_dim: int, state: int
                   ) -> Tuple[torch.Tensor, MambaCache]:
     """One-token step. x: [B, 1, D]. Updates ``cache`` in place (each part
-    keeps its dtype) and returns (out [B, 1, D], cache)."""
-    Bsz = x.shape[0]
+    keeps its dtype) and returns (out [B, 1, D], cache). A DTensor cache
+    (batch on the batch axes, conv channels and SSM heads on "model") is
+    read and written in its local shards: the conv history is gathered
+    over "model" for the step, and each rank writes back its channels."""
     d_inner = p["w_out"].shape[0]
     H = d_inner // head_dim
-    z, xbc, dt = _split_in(dot(x[:, 0], p["w_in"]), d_inner, state)
+    zx_g = dot(x[:, 0], gather_weight(p["w_in"]))
+    zx, conv_w, conv_b, dt_bias, A_log, Dp, hs, out_pl = _local_inputs(
+        zx_g, p, H)
+    Bsz = zx.shape[0]
+    part = isinstance(cache.conv, DTensor)
+    if part:
+        mesh = cache.conv.device_mesh
+        conv_hist = cache.conv.redistribute(mesh, [
+            Replicate() if isinstance(q, Shard) and q.dim == 2 else q
+            for q in cache.conv.placements]).to_local()
+        ssm = cache.ssm.to_local()
+    else:
+        conv_hist, ssm = cache.conv, cache.ssm
+    z, xbc, dt = _split_in(zx, d_inner, state)
     # conv over (cached K-1 inputs + current), in their promoted dtype
-    hdt = torch.promote_types(cache.conv.dtype, xbc.dtype)
-    hist = torch.cat([cache.conv.to(hdt), xbc[:, None, :].to(hdt)],
+    hdt = torch.promote_types(conv_hist.dtype, xbc.dtype)
+    hist = torch.cat([conv_hist.to(hdt), xbc[:, None, :].to(hdt)],
                      dim=1)                                   # [B, K, C]
-    w = p["conv_w"].float()
-    conv_out = (hist.float() * w[None]).sum(1) + p["conv_b"].float()
+    w = conv_w.float()
+    conv_out = (hist.float() * w[None]).sum(1) + conv_b.float()
     xbc_a = F.silu(conv_out)
     xs, Bs, Cs = torch.split(xbc_a, [d_inner, state, state], dim=-1)
-    dtv = F.softplus(dt.float() + p["dt_bias"])                # [B,H]
-    A = -torch.exp(p["A_log"])
-    xh = xs.reshape(Bsz, H, head_dim)
+    dsl = slice(hs.start * head_dim, hs.stop * head_dim)
+    Hl = hs.stop - hs.start
+    dtv = F.softplus(dt[..., hs].float() + dt_bias[hs])        # [B,H]
+    A = -torch.exp(A_log[hs])
+    xh = xs[..., dsl].reshape(Bsz, Hl, head_dim)
     dec = torch.exp(dtv * A[None])                             # [B,H]
-    h_new = (dec[:, :, None, None] * cache.ssm
+    h_new = (dec[:, :, None, None] * ssm
              + torch.einsum("bn,bh,bhp->bhnp", Bs, dtv, xh))
-    y = torch.einsum("bn,bhnp->bhp", Cs, h_new) + p["D"][None, :, None] * xh
-    y = y.reshape(Bsz, d_inner) * F.silu(z.float())
-    y = rms_norm(y.to(x.dtype), p["norm_w"])
-    out = dot(y, p["w_out"])[:, None, :]
-    cache.conv.copy_(hist[:, 1:])
-    cache.ssm.copy_(h_new)
+    y = torch.einsum("bn,bhnp->bhp", Cs, h_new) + Dp[hs][None, :, None] * xh
+    y = y.reshape(Bsz, Hl * head_dim) * F.silu(z[..., dsl].float())
+    y = _to_global(y.to(x.dtype), zx_g, out_pl)
+    y = rms_norm(y, p["norm_w"])
+    out = dot(y, gather_weight(p["w_out"]))[:, None, :]
+    if part:
+        new = hist[:, 1:]
+        c0 = shard_offset(cache.conv, -1)
+        cl = cache.conv.to_local()
+        cl.copy_(new[..., c0:c0 + cl.shape[-1]])
+        ssm.copy_(h_new)
+    else:
+        cache.conv.copy_(hist[:, 1:])
+        cache.ssm.copy_(h_new)
     return out, cache

@@ -22,6 +22,14 @@ slice 4.2 GB). The state and params passed in are the ones returned.
 Trees are dicts, lists and tuples (named tuples included) of tensors;
 leaves are visited in the reference's ``jax.tree_util`` order (dict keys
 sorted), which fixes the order in which the global norm adds its leaves.
+
+Distributed leaves (DTensors, as ``train.step`` places a partitioned
+state) are updated on each rank's **local shard**, with the same chunked
+views; their gradients must have the parameters' placements. The global
+norm adds each rank's local squares, counting a leaf replicated over some
+mesh dims on one rank of them only, and all-reduces the sum once over the
+mesh, so the clip scale is the same on every rank; the step is a host-side
+count, the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import math
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = ["AdamWState", "adamw_init", "clip_by_global_norm",
            "cosine_schedule", "compress_grads", "adamw_update",
@@ -81,14 +90,44 @@ def adamw_init(params) -> AdamWState:
     """Zero moments and an fp32 master copy of every param, each a tensor
     of its own on the param's device."""
     def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     leaves = tree_leaves(params)
-    dev = leaves[0].device if leaves else torch.device("cpu")
+    dev = _local(leaves[0]).device if leaves else torch.device("cpu")
     return AdamWState(
         torch.zeros((), dtype=torch.int32, device=dev),
         tree_map(zeros, params), tree_map(zeros, params),
         tree_map(lambda p: p.detach().to(torch.float32, copy=True), params))
+
+
+def _local(t):
+    """A DTensor's local shard (a view of its storage); anything else as it
+    is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _counted_here(t) -> bool:
+    """Whether this rank adds ``t``'s local squares to the global norm: on
+    each mesh dim where ``t`` is replicated, only the rank at index 0."""
+    if not isinstance(t, DTensor):
+        return True
+    mesh = t.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, p in enumerate(t.placements) if isinstance(p, Replicate))
+
+
+def _all_reduce_over(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over every rank of ``mesh`` (the process group's world)
+    in one all-reduce."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the global norm's mesh has {mesh.size()} ranks, "
+                         f"the process group {dist.get_world_size()}")
+    return funcol.wait_tensor(
+        funcol.all_reduce(t, "sum", dist.group.WORLD))
 
 
 def _chunks(t: torch.Tensor):
@@ -109,16 +148,24 @@ def _fp32(g: torch.Tensor, divisor: int) -> torch.Tensor:
 @torch.no_grad()
 def global_norm(grads, divisor: int = 1) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's fp32 sum
-    of squares; a leaf is read ``UPDATE_CHUNK`` elements at a time."""
+    of squares; a leaf is read ``UPDATE_CHUNK`` elements at a time.
+    Distributed leaves: each rank's local shards, a replicated leaf counted
+    once, the sum all-reduced over the mesh once."""
     leaves = tree_leaves(grads)
-    dev = leaves[0].device if leaves else torch.device("cpu")
+    dev = _local(leaves[0]).device if leaves else torch.device("cpu")
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
+                None)
     g2 = torch.zeros((), dtype=torch.float32, device=dev)
     for g in leaves:
+        if not _counted_here(g):
+            continue
         s = torch.zeros((), dtype=torch.float32, device=dev)
-        for gc in g.reshape(-1).split(UPDATE_CHUNK):
+        for gc in _local(g).reshape(-1).split(UPDATE_CHUNK):
             x = _fp32(gc, divisor)
             s = s + torch.sum(x * x)
         g2 = g2 + s
+    if mesh is not None:
+        g2 = _all_reduce_over(mesh, g2)
     return torch.sqrt(g2)
 
 
@@ -169,9 +216,10 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
     chunk as it is read: the microbatch path passes its bf16 sums and
     their count, where the reference first builds the whole fp32 quotient
     tree."""
-    g_l, p_l = tree_leaves(grads), tree_leaves(params)
-    m_l, v_l, w_l = (tree_leaves(state.m), tree_leaves(state.v),
-                     tree_leaves(state.master))
+    g_l = [_local(t) for t in tree_leaves(grads)]
+    p_l = [_local(t) for t in tree_leaves(params)]
+    m_l, v_l, w_l = ([_local(t) for t in tree_leaves(tree)]
+                     for tree in (state.m, state.v, state.master))
     if not len(g_l) == len(p_l) == len(m_l) == len(v_l) == len(w_l):
         raise ValueError(f"grads, params and state differ in leaves: "
                          f"{len(g_l)}, {len(p_l)}, {len(m_l)}, {len(v_l)}, "
@@ -181,10 +229,11 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         scale = _clip_scale(gnorm, max_grad_norm)
     else:
         gnorm = torch.zeros((), dtype=torch.float32,
-                            device=state.step.device)
+                            device=_local(state.step).device)
         scale = None
     step = state.step + 1
-    sf = step.to(torch.float32)
+    sf = _local(step).to(torch.float32)
+    lr = _local(lr)
     b1c = 1 - torch.pow(b1, sf)
     b2c = 1 - torch.pow(b2, sf)
     for g, p, m, v, w in zip(g_l, p_l, m_l, v_l, w_l):

@@ -116,11 +116,12 @@ Phases (any failure exits non-zero and prints no result line):
    through ``simt`` on the same bf16 operands and with fp32 operands, the
    plain version, ``torch._grouped_mm`` as the library yardstick) and at 128
    tokens (each GEMM, bound by the weights' bytes), each beside its bound,
-   and the whole ``moe_block`` at both; then phases 18 and 19, then the
+   and the whole ``moe_block`` at both; then phases 18 to 22, then the
    ``{"kernels": [...]}`` line (every record also carries
-   ``launches_by_path``, its launches on each path that runs it, ``lm``
-   and ``lm_train`` included), the card line, and the ``{"ok": true,
-   ...}`` line last.
+   ``launches_by_path``, its launches on each path that runs it: ``lm``,
+   ``lm_train``, ``lm_sharded`` and ``lm_microbatch`` included, phase
+   22's ``moe_example`` for K4 and ``tune_cli`` for K1-K3), the card
+   line, and the ``{"ok": true, ...}`` line last.
 13. slice E's autotuning path (run after phase 9), on the Arxiv analogue
    and its integer copy as phase 9 builds them: (a) every candidate of
    ``default_candidates`` for the tpu default and paper (12, 32) (slab
@@ -334,11 +335,44 @@ Phases (any failure exits non-zero and prints no result line):
    batch 256, T=4096) and ``decode_32k`` (batch 128, S=32,768): the dry
    run's prediction traced on meta in a child (started beside (a)), then,
    where it fits in 80 GB, the same step in another child with its local
-   shards allocated on the card and counted under the same mode: FLOPs and
-   collective bytes equal, argument bytes equal, the peak within
-   ``SHARD_PEAK_REL`` of the prediction, and its CUDA-event ms (compute of
+   shards allocated on the card and counted under the same mode (its
+   second step: the first allocates the libraries' workspaces): FLOPs and
+   collective bytes equal, argument bytes equal, the allocator's peak
+   (``max_memory_allocated``) within ``SHARD_PEAK_REL`` of the predicted
+   peak of allocator blocks (each storage rounded up to 512 bytes; the
+   child runs the allocator with ``expandable_segments:True``, which
+   splits every block it hands out, so no cached block comes unsplit;
+   the peak of the bytes requested, the tracker's raw peak, is logged
+   beside it), and its CUDA-event ms (compute of
    one rank, no communication: the fake group moves nothing, so its values
    are not a model's and nothing is asserted of them).
+22. slice M (after phase 21): (a) phase 21 (a)'s program with
+   ``microbatch=MB_MICROBATCH`` (B=4 in 2 microbatches; the partitioned
+   step places each microbatch's global rows on the batch axes) on the
+   same nccl group, against the one-card microbatched step in the same
+   process: losses, grad_norms, sampled leaves, logits and tokens
+   bit-equal on one card; step ms and peak beside phase 21 (a)'s
+   unmicrobatched ones. (b) rank 0 of ``pod16x16`` on ``train_4k`` with
+   ``microbatch`` = 256 // ``MB_DIV`` (hillclimb's ``microbatch4``) at
+   full width, its depth cut to ``MB_LAYERS`` (a full-depth trace at the
+   production chunks takes minutes of host time), and the same cut
+   without microbatching, as phase 21 (b): meta's predictions in children
+   beside (a), then each step on the card, counted: FLOPs and collective
+   bytes equal, argument bytes equal, the peak within ``SHARD_PEAK_REL``
+   of the prediction; microbatched, the same FLOPs and a lower peak. (c) ``examples/moe_block_dispatch.py``'s port with ``--device
+   cuda``: 3 K4 ``simt`` launches per ``moe_block`` call, its claims
+   (block dispatch within 1e-5 of the dropless capacity dispatch; a
+   capacity of 1.25 drops under skew); then its two routings at
+   dbrx-132b's full MoE width in bf16 (4,096 tokens, ``m_tile`` 128: K4
+   ``wgmma``) against ``moe_capacity`` at a capacity that drops nothing,
+   within ``2**-6 * max|ref|`` (the MoE tests' bf16 bound). (d)
+   ``python -m repro_torch.scripts.tune_partition``'s ``main`` on
+   synthetic power-law graphs (``TUNE_CLI_RUNS``): ``accel`` (K1) and
+   ``auto`` at 20,000 nodes (K3) and 12,000 (K2); the ranking and each
+   kernel's launches, (1 + repeats) per timed plan. (e) on meta, in a
+   child beside (a): ``coll_breakdown``'s top rows and hillclimb's
+   ``baseline`` and ``microbatch4`` terms for phi3 ``train_4k`` (rank 0
+   of ``pod16x16``) against the card's row.
 
 Tolerance for float results. K1 and K3 sum a row in two levels: at most
 min(deg, C) rounded products in order inside a block, then one partial per
@@ -5604,16 +5638,19 @@ SHARD_DECODE = 4                # (a): decode steps
 SHARD_REL = 1e-5                # (a), N > 1 cards: fp32, as the CPU tests
 SHARD_CELLS = ("train_4k", "decode_32k")   # (b): rank 0 of pod16x16
 SHARD_PEAK_REL = 0.01           # (b): measured peak against the dry run's
+# (b): the card's children run the allocator as the dry run predicts it:
+# every block split to its request rounded up to 512 bytes
+SHARD_ALLOC_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 SHARD_TIMED = 1                 # (b): timed steps after the counted one
 SHARD_TIMEOUT_S = 900.0
 
 
-def _shard_child(entry, args, out, env_extra=None):
-    """A ``python -c`` child running ``chip_smoke.<entry>(*args)``, its
-    JSON result written to ``out``."""
+def _shard_child(entry, args, out, env_extra=None, kwargs=None):
+    """A ``python -c`` child running ``chip_smoke.<entry>(*args,
+    **kwargs)``, its JSON result written to ``out``."""
     src = (f"import sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
            f"import chip_smoke\nchip_smoke.{entry}(*{args!r}, "
-           f"out={out!r})\n")
+           f"out={out!r}, **{kwargs or {}!r})\n")
     env = dict(os.environ, PYTHONPATH=SRC, **(env_extra or {}))
     return subprocess.Popen([sys.executable, "-c", src], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -5680,11 +5717,12 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def shard_real_worker(rank, world, init, out, device="cuda"):
+def shard_real_worker(rank, world, init, out, device="cuda",
+                      microbatch=None):
     """Phase 21 (a), one rank: the partitioned program over every visible
     card (nccl, ``make_host_mesh()``) against the one-card program in the
     same process, from the same seed (``device="cpu"``: gloo, a CPU
-    rehearsal)."""
+    rehearsal); phase 22 (a) with ``microbatch``."""
     import torch
     import torch.distributed as dist
     from repro_torch.analysis.counters import count_call
@@ -5719,14 +5757,15 @@ def shard_real_worker(rank, world, init, out, device="cuda"):
         kw = dict(peak_lr=3e-4, warmup=2, loss_chunk=512, q_chunk=512,
                   kv_chunk=512)
         res = {"rank": rank, "world": world, "mesh": sizes,
-               "layers": SHARD_LAYERS, "fp32": fp32}
+               "layers": SHARD_LAYERS, "fp32": fp32,
+               "microbatch": microbatch}
         runs = {}
         for name in ("partitioned", "one card"):
             p = params_from_seed()
             if name == "partitioned":
                 p = distribute(p, param_specs(p, mesh), mesh)
             state = TrainState(p, adamw_init(p))
-            step = make_train_step(cfg, **kw)
+            step = make_train_step(cfg, microbatch=microbatch, **kw)
             losses, ms, counts = [], [], None
             _sync(torch, dev)
             if cuda:
@@ -5800,38 +5839,49 @@ def shard_real_worker(rank, world, init, out, device="cuda"):
         dist.destroy_process_group()
 
 
-def shard_meta_worker(cell, out):
+def shard_cfg(layers=None):
+    """``SHARD_ARCH`` at full width, its depth cut to ``layers``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SHARD_ARCH)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def shard_meta_worker(cell, out, chunks=None, layers=None):
     """Phase 21 (b), the prediction: rank 0's share of ``cell`` on
-    pod16x16, traced on meta under a fake group (the dry run's row)."""
-    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    pod16x16, traced on meta under a fake group (the dry run's row);
+    phase 22 (b) with ``chunks``' microbatch and ``layers``."""
+    from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_production_mesh
-    cfg, shape = get_config(SHARD_ARCH), SHAPES_BY_NAME[cell]
-    c, s = D.trace_partitioned(cfg, shape, make_production_mesh())
+    cfg, shape = shard_cfg(layers), SHAPES_BY_NAME[cell]
+    c, s = D.trace_partitioned(cfg, shape, make_production_mesh(),
+                               chunks=chunks)
     with open(out, "w") as f:
         json.dump({"flops": c.flops, "bytes": c.bytes,
                    "coll_bytes": c.coll_bytes, "argument": c.argument_bytes,
-                   "peak": c.peak_live_bytes, "trace_s": s}, f)
+                   "peak": c.peak_live_bytes,
+                   "peak_blocks": c.peak_block_bytes, "trace_s": s}, f)
 
 
-def shard_card_worker(cell, out, device="cuda"):
+def shard_card_worker(cell, out, device="cuda", chunks=None, layers=None):
     """Phase 21 (b), the card: rank 0's share of ``cell`` on pod16x16 under
     a fake group of 256 ranks, its local shards allocated on the card (from
     a generator; the fake collectives move nothing, so the values computed
-    are not a model's), counted under the dry run's mode, then timed
-    (``device="cpu"``: a CPU rehearsal, no memory or time of a card)."""
+    are not a model's), run once, then counted under the dry run's mode,
+    then timed (``device="cpu"``: a CPU rehearsal, no memory or time of a
+    card)."""
     import torch
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.analysis.counters import storage_bytes
-    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_device_mesh, make_production_mesh
     from repro_torch.models import moe
     from repro_torch.sharding import use_mesh
     from repro_torch.train.step import materialize
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, shape = get_config(SHARD_ARCH), SHAPES_BY_NAME[cell]
+    cfg, shape = shard_cfg(layers), SHAPES_BY_NAME[cell]
     sizes = make_production_mesh()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -5840,24 +5890,56 @@ def shard_card_worker(cell, out, device="cuda"):
     try:
         moe.DISPATCH_GROUPS = sizes["data"]
         mesh = make_device_mesh(sizes, device=device)
-        fn, args = D.build_cell(cfg, shape, device="meta", mesh=mesh)
+        fn, args = D.build_cell(cfg, shape, chunks=chunks, device="meta",
+                                mesh=mesh)
         args = materialize(args, device,
                            torch.Generator(device=dev).manual_seed(0))
         live = storage_bytes(args)
-        _sync(torch, dev)
-        base = torch.cuda.memory_allocated() if cuda else 0
+        live_blocks = storage_bytes(args, blocks=True)
+
+        def step():
+            with torch.set_grad_enabled(shape.kind == "train"), \
+                    use_mesh(mesh):
+                fn(*args)
+
+        def held():
+            """(allocated, requested) bytes now: the allocator's blocks
+            and the bytes the program asked for (the tracker's raw terms)."""
+            _sync(torch, dev)
+            if not cuda:
+                return 0, 0
+            st = torch.cuda.memory_stats()
+            return (st["allocated_bytes.all.current"],
+                    st["requested_bytes.all.current"])
+
+        def peaks(base):
+            """The peaks (allocated, requested) since the last reset, less
+            ``base`` (``held()`` then), the arguments counted in again."""
+            _sync(torch, dev)
+            st = torch.cuda.memory_stats()
+            return (st["allocated_bytes.all.peak"] - base[0] + live_blocks,
+                    st["requested_bytes.all.peak"] - base[1] + live)
+
+        # a first step also allocates what the libraries then keep (a
+        # cuBLAS workspace for each thread that runs a GEMM): the
+        # prediction is of a step, so the counted step is the second
+        base = held()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        step()
+        kept = held()[0] - base[0]
+        cold = peaks(base)[0] if cuda else 0
+        base = held()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         c = D.run_counted(fn, args, shape.kind, mesh)
-        _sync(torch, dev)
-        peak = card_step_peak(torch, base, c) if cuda else c.peak_live_bytes
+        peak, requested = peaks(base) if cuda else (c.peak_block_bytes,
+                                                    c.peak_live_bytes)
         times = []
         for _ in range(SHARD_TIMED):
             a, b = _events(torch, dev)
             a.record()
-            with torch.set_grad_enabled(shape.kind == "train"), \
-                    use_mesh(mesh):
-                fn(*args)
+            step()
             b.record()
             _sync(torch, dev)
             times.append(a.elapsed_time(b))
@@ -5865,7 +5947,8 @@ def shard_card_worker(cell, out, device="cuda"):
             json.dump({"flops": c.flops, "bytes": c.bytes,
                        "coll_bytes": c.coll_bytes,
                        "argument": c.argument_bytes, "live": live,
-                       "peak": peak,
+                       "peak": peak, "requested_peak": requested,
+                       "cold_peak": cold, "kept": kept,
                        "max_allocated": (torch.cuda.max_memory_allocated()
                                          if cuda else 0),
                        "tracker_peak": c.peak_live_bytes,
@@ -5873,6 +5956,19 @@ def shard_card_worker(cell, out, device="cuda"):
                        "k_launches": k_launches()}, f)
     finally:
         dist.destroy_process_group()
+
+
+def _shard_peak(m, c):
+    """(b): the card's allocator peak against meta's predicted peak of
+    allocator blocks, relative, and the words that log both peaks."""
+    rel = c["peak"] / m["peak_blocks"] - 1
+    return rel, (
+        f"peak {m['peak_blocks']} B ({m['peak_blocks'] / 2**30:.3f} GiB) of "
+        f"allocator blocks predicted, {c['peak']} B allocated on the card "
+        f"(max_memory_allocated), {rel * 100:+.4f}%; requested "
+        f"{c['requested_peak']} B against the tracker's {m['peak']} B, "
+        f"{(c['requested_peak'] / m['peak'] - 1) * 100:+.4f}%; the first "
+        f"step {c['cold_peak']} B, leaving {c['kept']} B")
 
 
 def phase_sharded(torch, card_line):
@@ -5948,7 +6044,8 @@ def phase_sharded(torch, card_line):
                 f"not run on the card")
             rec["cells"][cell] = {"meta": m, "fits": False}
             continue
-        pc = _shard_child("shard_card_worker", (cell,), out_c)
+        pc = _shard_child("shard_card_worker", (cell,), out_c,
+                          SHARD_ALLOC_ENV)
         _shard_wait([pc], t0, "card")
         with open(out_c) as f:
             c = json.load(f)
@@ -5956,16 +6053,13 @@ def phase_sharded(torch, card_line):
             launches[k] = launches.get(k, 0) + v
         rec["cells"][cell] = {"meta": m, "card": c,
                               "s": time.perf_counter() - t0}
-        rel = c["peak"] / m["peak"] - 1
+        rel, peak_text = _shard_peak(m, c)
         log(f"phase 21 (b) {SHARD_ARCH} {cell}, rank 0 of pod16x16 (fake "
             f"group of 256; full width and depth; a rehearsal of one rank's "
             f"share, its values not a model's): FLOPs {m['flops']} on meta, "
             f"{c['flops']} on the card; collective bytes {m['coll_bytes']} "
             f"on meta, {c['coll_bytes']} on the card; argument bytes "
-            f"{m['argument']} predicted, {c['live']} live; peak "
-            f"{m['peak']} B ({m['peak'] / 2**30:.3f} GiB) predicted, "
-            f"{c['peak']} B on the card (max_memory_allocated "
-            f"{c['max_allocated']} B), {rel * 100:+.4f}%; step "
+            f"{m['argument']} predicted, {c['live']} live; {peak_text}; step "
             f"{[round(x, 3) for x in c['ms']]} ms by CUDA events: compute "
             f"of one rank, no communication; meta trace {m['trace_s']:.1f}s; "
             f"{card_line}")
@@ -5981,6 +6075,302 @@ def phase_sharded(torch, card_line):
     rec["launches"] = launches
     rec["s"] = time.perf_counter() - t_phase
     log(f"phase 21 {rec['s']:.1f}s; K1-K4 launches in its processes "
+        f"{launches}; {card_line}")
+    return rec
+
+
+MB_MICROBATCH = 2               # 22 (a): rows a microbatch of SHARD_B
+MB_CELL = "train_4k"            # 22 (b), (e): rank 0 of pod16x16
+MB_DIV = 4                      # 22 (b): hillclimb's microbatch4
+MB_LAYERS = SHARD_LAYERS        # 22 (b): depth cut for the phase's time
+MB_VARIANTS = ("baseline", "microbatch4")   # 22 (e)
+MB_BREAKDOWN_LAYERS = 2         # 22 (e): coll_breakdown's default depth
+MOE_EX_ARCH = "dbrx-132b"       # 22 (c): the example's routings at full width
+MOE_EX_TOKENS = (1, 4096)
+MOE_EX_M_TILE = 128
+MOE_EX_BF16_REL = 2.0 ** -6     # 22 (c): tests/test_torch_moe.py's bf16 bound
+TUNE_CLI_REPEATS = 3            # 22 (d): the CLI's default
+TUNE_CLI_RUNS = (("accel", "20000,100000,0", "K1"),
+                 ("auto", "20000,100000,0", "K3"),
+                 ("auto", "12000,60000,0", "K2"))
+
+
+def mb_scripts_worker(hw, out):
+    """Phase 22 (e), on meta: ``coll_breakdown``'s rows and hillclimb's
+    records for ``MB_CELL`` (rank 0 of pod16x16), the terms against the
+    card's row ``hw``."""
+    from repro_torch.analysis import counters
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.scripts import coll_breakdown, hillclimb
+    cfg, shape = get_config(SHARD_ARCH), SHAPES_BY_NAME[MB_CELL]
+    walk, spent = counters._collective_source, [0.0, 0]
+
+    def timed_walk():      # the counting mode's stack walk, timed
+        t = time.perf_counter()
+        try:
+            return walk()
+        finally:
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+
+    t0 = time.perf_counter()
+    counters._collective_source = timed_walk
+    try:
+        rows, counts = coll_breakdown.breakdown(
+            cfg.replace(n_layers=MB_BREAKDOWN_LAYERS), shape)
+    finally:
+        counters._collective_source = walk
+    res = {"rows": [[list(k), b] for k, b in rows],
+           "coll_bytes": counts.coll_bytes, "trace_s": counts.seconds,
+           "walk_s": spent[0], "walks": spent[1],
+           "breakdown_s": time.perf_counter() - t0, "hillclimb": {}}
+    for v in MB_VARIANTS:
+        t0 = time.perf_counter()
+        rec = hillclimb.measure(cfg, shape, v, hw=hw)
+        res["hillclimb"][v] = dict(rec, s=time.perf_counter() - t0)
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def moe_example_checks(label, out, ref_rel=None):
+    """The example's claims on ``run``'s result: block dispatch dropless
+    against the dropless capacity dispatch (within 1e-5; in bf16 within
+    ``ref_rel`` of max |ref|) and, for the example itself, a capacity of
+    1.25 dropping under skew."""
+    for name, r in out.items():
+        bound = 1e-5 if ref_rel is None else ref_rel * r["ref_max"]
+        log(f"phase 22 (c) {label}, {name}: expert loads {r['loads']}; "
+            f"block dispatch vs dropless {r['block_err']:.3e} (bound "
+            f"{bound:.3e}), capacity 1.25 vs dropless "
+            f"{r['capacity_err']:.3e}")
+        if not r["block_err"] <= bound:
+            raise AssertionError(f"phase 22 (c) {label}, {name}: block "
+                                 f"dispatch {r['block_err']} off the "
+                                 f"dropless answer (bound {bound})")
+    if ref_rel is None and not out["skewed routing"]["capacity_err"] > 0:
+        raise AssertionError(f"phase 22 (c) {label}: capacity 1.25 dropped "
+                             f"nothing under skew")
+
+
+def phase_moe_example(torch, card_line, device="cuda"):
+    """Phase 22 (c): the example on the card, then its routings at
+    ``MOE_EX_ARCH``'s full MoE width in bf16. Returns K4's launches
+    (``device="cpu"``: a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import moe_block_dispatch as ex
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.models.moe import init_moe
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    total = 0
+    for label in ("the example", MOE_EX_ARCH):
+        grouped_matmul.launches = 0
+        grouped_matmul.launches_by_instance = {"wgmma": 0, "simt": 0}
+        if label == "the example":
+            out = ex.main(["--device", device])
+            inst, ref_rel = "simt", None
+        else:
+            cfg = get_config(MOE_EX_ARCH)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            p = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                         device=dev)
+            x = torch.randn((*MOE_EX_TOKENS, cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            out = ex.run(p, x, m_tile=MOE_EX_M_TILE, top_k=cfg.top_k)
+            inst, ref_rel = "wgmma", MOE_EX_BF16_REL
+            del p, x
+        _sync(torch, dev)
+        n, by = grouped_matmul.launches, dict(
+            grouped_matmul.launches_by_instance)
+        want = {"wgmma": 0, "simt": 0}
+        want[inst] = 3 * len(out)
+        log(f"phase 22 (c) {label}: K4 launches {n} by instance {by} "
+            f"(3 per moe_block call, {len(out)} calls); {card_line}")
+        if by != want or n != 3 * len(out):
+            raise AssertionError(f"phase 22 (c) {label}: K4 launches {by}, "
+                                 f"want {want}")
+        moe_example_checks(label, out, ref_rel)
+        total += n
+        del out
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"phase 22 (c) {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def phase_tune_cli(torch, card_line, device="cuda"):
+    """Phase 22 (d): the tune_partition CLI's ``main`` on the card for
+    each of ``TUNE_CLI_RUNS``. Returns K1-K3's launches (``device="cpu"``:
+    a CPU rehearsal)."""
+    import contextlib
+    import io
+    from repro_torch.scripts import tune_partition
+    total = dict.fromkeys(("K1", "K2", "K3"), 0)
+    for backend, graph, kernel in TUNE_CLI_RUNS:
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):   # the JSON report
+            rep = tune_partition.main(["--synthetic", graph, "--backend",
+                                       backend, "--repeats",
+                                       str(TUNE_CLI_REPEATS), "--device",
+                                       device])
+        _sync(torch, torch.device(device))
+        got = read_launches()
+        timed = 1 + sum("time_s" in c for c in rep["candidates"])
+        want = dict.fromkeys(total, 0)
+        want[kernel] = (1 + TUNE_CLI_REPEATS) * timed
+        ranking = sorted((c for c in rep["candidates"] if "time_s" in c),
+                         key=lambda c: c["time_s"])
+        errors = [c["label"] for c in rep["candidates"] if "error" in c]
+        log(f"phase 22 (d) tune_partition --synthetic {graph} --backend "
+            f"{backend}: {rep['graph']}; base "
+            f"{rep['base']['time_s'] * 1e3:.4f} ms; ranking "
+            + ", ".join(f"{c['label']} {c['time_s'] * 1e3:.4f} ms "
+                        f"({c['speedup_vs_base']:.3f}x)" for c in ranking)
+            + f"; errors {errors}; launches {got}; "
+            f"{time.perf_counter() - t0:.1f}s; {card_line}")
+        if got != want:
+            raise AssertionError(f"phase 22 (d) {backend} on {graph}: "
+                                 f"launches {got}, want {want}")
+        for k, v in got.items():
+            total[k] += v
+    return total
+
+
+def phase_microbatch(torch, card_line, sharded):
+    """Phase 22: slice M (see the module docstring); ``sharded`` is phase
+    21's record, whose unmicrobatched step (a) is set beside. Returns the
+    phase's record with K1-K4's launches on its paths."""
+    import tempfile
+    from repro_torch.analysis.roofline import hw_for
+    from repro_torch.configs import SHAPES_BY_NAME
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase22_")
+    n = torch.cuda.device_count()
+    mb = SHAPES_BY_NAME[MB_CELL].global_batch // MB_DIV
+    # (b)'s predictions and (e) on meta, beside (a)
+    cells = {"plain": {}, "microbatched": {"microbatch": mb}}
+    t_meta = time.perf_counter()
+    outs = {k: os.path.join(tmp, f"meta_{k}.json") for k in cells}
+    out_e = os.path.join(tmp, "scripts.json")
+    metas = [_shard_child("shard_meta_worker", (MB_CELL,), outs[k],
+                          kwargs={"chunks": ch, "layers": MB_LAYERS})
+             for k, ch in cells.items()]
+    metas.append(_shard_child("mb_scripts_worker", (hw_for("cuda")["name"],),
+                              out_e))
+    init = os.path.join(tmp, "nccl_init")
+    out_a = os.path.join(tmp, "real.json")
+    t0 = time.perf_counter()
+    procs = [_shard_child("shard_real_worker", (r, n, init), out_a,
+                          {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                          {"microbatch": MB_MICROBATCH})
+             for r in range(n)]
+    try:
+        _shard_wait(procs, t0, "rank")
+    except BaseException:
+        for q in metas:
+            q.kill()
+        raise
+    with open(out_a) as f:
+        a = json.load(f)
+    plain = sharded["real"]
+    log(f"phase 22 (a) {SHARD_ARCH} at full width, {SHARD_LAYERS} layers, "
+        f"mesh {a['mesh']} (nccl), B={SHARD_B} in microbatches of "
+        f"{a['microbatch']}, T={SHARD_T}: losses (loss, grad_norm) "
+        f"{a['losses']}; step ms (CUDA events, the last counted) "
+        f"microbatched partitioned "
+        f"{[round(x, 3) for x in a['ms']['partitioned']]}, one card "
+        f"{[round(x, 3) for x in a['ms']['one card']]}; without "
+        f"microbatching (phase 21 (a)) partitioned "
+        f"{[round(x, 3) for x in plain['ms']['partitioned']]}, one card "
+        f"{[round(x, 3) for x in plain['ms']['one card']]}; peak GiB "
+        f"microbatched {a['peak_gib']}, without {plain['peak_gib']}; "
+        f"collectives of one step {a['coll_n']} = {a['coll_bytes']} B; "
+        f"{time.perf_counter() - t0:.1f}s; {card_line}")
+    log(f"phase 22 (a) against the one-card microbatched step: loss equal "
+        f"{a['loss_equal']}, sampled leaves {a['leaf_err']}, logits "
+        f"{a['logit_err']:.3g}, tokens equal {a['tokens_equal']}")
+    if n == 1:
+        if not (a["loss_equal"] and a["tokens_equal"]
+                and a["logit_err"] == 0
+                and all(v == 0 for v in a["leaf_err"].values())):
+            raise AssertionError("phase 22 (a): the microbatched 1x1 mesh is "
+                                 "not bit-equal to the one-card step")
+    elif not (a["loss_err"] <= SHARD_REL and a["logit_err"] <= SHARD_REL
+              and max(a["leaf_err"].values()) <= SHARD_REL):
+        raise AssertionError(f"phase 22 (a): beyond {SHARD_REL} of one card")
+    launches = dict(a["k_launches"])
+    # (b) the cut cell without and with microbatching on the card
+    _shard_wait(metas, t_meta, "meta")
+    b = {}
+    for k, ch in cells.items():
+        with open(outs[k]) as f:
+            m = json.load(f)
+        t0 = time.perf_counter()
+        out_c = os.path.join(tmp, f"card_{k}.json")
+        _shard_wait([_shard_child("shard_card_worker", (MB_CELL,), out_c,
+                                  SHARD_ALLOC_ENV,
+                                  kwargs={"chunks": ch,
+                                          "layers": MB_LAYERS})],
+                    t0, "card")
+        with open(out_c) as f:
+            c = json.load(f)
+        for kk, v in c["k_launches"].items():
+            launches[kk] = launches.get(kk, 0) + v
+        b[k] = {"meta": m, "card": c}
+        rel, peak_text = _shard_peak(m, c)
+        log(f"phase 22 (b) {SHARD_ARCH} {MB_CELL} {k} ({ch or 'one batch'})"
+            f", full width, {MB_LAYERS} of 32 layers, rank 0 of pod16x16 "
+            f"(fake group of 256): FLOPs {m['flops']} on meta, {c['flops']} "
+            f"on the card; collective bytes {m['coll_bytes']} on meta, "
+            f"{c['coll_bytes']} on the card; argument bytes {m['argument']} "
+            f"predicted, {c['live']} live; {peak_text}; step "
+            f"{[round(x, 3) for x in c['ms']]} ms by CUDA events; meta trace "
+            f"{m['trace_s']:.1f}s; {time.perf_counter() - t0:.1f}s; "
+            f"{card_line}")
+        if c["flops"] != m["flops"] or c["coll_bytes"] != m["coll_bytes"]:
+            raise AssertionError(f"phase 22 (b) {k}: card and meta counts "
+                                 f"differ")
+        if c["argument"] != m["argument"] or abs(rel) > SHARD_PEAK_REL:
+            raise AssertionError(f"phase 22 (b) {k}: arguments "
+                                 f"{c['argument']} vs {m['argument']}, peak "
+                                 f"{rel * 100:+.3f}%")
+    peaks = {k: v["card"]["peak"] for k, v in b.items()}
+    if not peaks["microbatched"] < peaks["plain"]:
+        raise AssertionError(f"phase 22 (b): microbatched peak not below the "
+                             f"plain one: {peaks}")
+    if b["microbatched"]["card"]["flops"] != b["plain"]["card"]["flops"]:
+        raise AssertionError("phase 22 (b): microbatching changed the FLOPs")
+    # (e) the scripts' records, from the child beside (a)
+    with open(out_e) as f:
+        e = json.load(f)
+    log(f"phase 22 (e) coll_breakdown {SHARD_ARCH} {MB_CELL} baseline "
+        f"({MB_BREAKDOWN_LAYERS} layers, rank 0 of pod16x16, meta, "
+        f"{e['breakdown_s']:.1f}s); top rows:")
+    log(f"phase 22 (e) the source of each collective: {e['walks']} stack "
+        f"walks took {e['walk_s'] * 1e3:.3f} ms of the {e['trace_s']:.3f} s "
+        f"trace ({e['walk_s'] / e['trace_s'] * 100:.4f}%)")
+    for (kind, dtype, src), n in e["rows"][:10]:
+        log(f"  {n / 1e9:10.3f} GB  {kind:14s} {dtype:5s} {src}")
+    per_kind = {}
+    for (kind, _, _), n in e["rows"]:
+        per_kind[kind] = per_kind.get(kind, 0) + n
+    if per_kind != e["coll_bytes"]:
+        raise AssertionError(f"phase 22 (e): breakdown rows {per_kind} do "
+                             f"not sum to the count {e['coll_bytes']}")
+    for v, r in e["hillclimb"].items():
+        log(f"phase 22 (e) hillclimb {v}: terms "
+            f"{ {k: round(x * 1e3, 3) for k, x in r['terms'].items()} } ms "
+            f"against {r['hw']}, bottleneck {r['bottleneck']}, useful "
+            f"{r['useful']:.4f}; cost {r['cost']}; {r['s']:.1f}s")
+    # (c) and (d) in this process
+    k4 = phase_moe_example(torch, card_line)
+    tune = phase_tune_cli(torch, card_line)
+    rec = {"real": a, "cells": b, "scripts": e,
+           "launches": launches, "moe_example": k4, "tune_cli": tune,
+           "s": time.perf_counter() - t_phase}
+    log(f"phase 22 {rec['s']:.1f}s; K1-K4 launches in its child processes "
         f"{launches}; {card_line}")
     return rec
 
@@ -6066,11 +6456,16 @@ def main():
     phase_dryrun(torch, card_line, lm_rec["dryrun"] + [train_lm["dryrun"]])
     lm_after = k_launches()
     sharded = phase_sharded(torch, card_line)
-    k4["launches_by_path"] = {"moe": k4["launches"]}
+    micro = phase_microbatch(torch, card_line, sharded)
+    k4["launches_by_path"] = {"moe": k4["launches"],
+                              "moe_example": micro["moe_example"]}
+    for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        rec["launches_by_path"]["tune_cli"] = micro["tune_cli"][k]
     for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4")):
         rec["launches_by_path"]["lm"] = lm_mid[k] - lm_before[k]
         rec["launches_by_path"]["lm_train"] = lm_after[k] - lm_mid[k]
         rec["launches_by_path"]["lm_sharded"] = sharded["launches"].get(k, 0)
+        rec["launches_by_path"]["lm_microbatch"] = micro["launches"].get(k, 0)
     log(f"peak device memory {peak / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t0:.1f}s")
     records = [k1, k2, k3, k4]

@@ -32,7 +32,10 @@ records:
   all-reduce twice, a reduce-scatter times its group's size. A
   collective's traffic is counted here and not in ``bytes``; each one is
   also listed in ``collectives`` (kind, group name, group size, result
-  shape, bytes).
+  shape, bytes) and, at the same index, in ``collective_origins`` (its
+  dtype as HLO names it, ``f32``, ``bf16``, ...; and its source: the
+  innermost ``repro_torch`` frame outside ``sharding/rules.py`` and this
+  module, as ``module:function``, e.g. ``models.layers:_row_parallel``).
 
 A DTensor op is left to DTensor (the mode returns ``NotImplemented``), so
 the mode counts the local ops and collectives it runs on each rank's
@@ -41,13 +44,20 @@ its local shard's. The ops DTensor runs on fake tensors to infer a global
 shape (the first time it meets an op) are not counted.
 
 The mode counts meta, CPU and CUDA tensors alike, so one program gives the
-same counts on each. On the card ``torch.cuda.max_memory_allocated`` also
-sees what a kernel allocates inside one op (a library's workspace) and
-rounds each block up to 512 bytes; the tracker sees storages only.
+same counts on each. ``peak_block_bytes`` is the peak in the CUDA caching
+allocator's terms: each storage in a block rounded up to 512 bytes
+(:func:`block_bytes`). It is what ``torch.cuda.max_memory_allocated``
+shows over the call when the allocator splits every block it hands out,
+as it does under ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``.
+Without that setting the allocator may hand out a cached block unsplit,
+up to 1 MiB more than asked, which no count of storages can predict.
+Neither peak sees what a kernel allocates inside one op (a library's
+workspace).
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Callable, Dict, Iterable, Tuple
 
@@ -59,7 +69,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["Counts", "CountingMode", "count_call", "storage_bytes"]
+__all__ = ["Counts", "CountingMode", "block_bytes", "count_call",
+           "storage_bytes"]
 
 _aten = torch.ops.aten
 # ops that read metadata only (FlopCounterMode passes the same set through)
@@ -87,6 +98,27 @@ _COLLECTIVES = {
     "all_to_all_single": "all-to-all",
 }
 _XFER = {"all-gather": 1, "all-reduce": 2, "all-to-all": 1}
+_HLO_DTYPES = {torch.float64: "f64", torch.float32: "f32",
+               torch.float16: "f16", torch.bfloat16: "bf16",
+               torch.int64: "s64", torch.int32: "s32", torch.int16: "s16",
+               torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred"}
+# the CUDA caching allocator's granule: every block is a multiple of it
+ALLOC_BLOCK = 512
+# frames that carry a collective but do not say where it comes from
+_NOT_SOURCES = ("repro_torch.sharding.rules", "repro_torch.analysis.counters")
+
+
+def _collective_source() -> str:
+    """``module:function`` of the innermost ``repro_torch`` frame on this
+    thread's stack outside ``_NOT_SOURCES`` (the package prefix dropped),
+    or ``"?"`` where there is none."""
+    f = sys._getframe(1)
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod.startswith("repro_torch.") and mod not in _NOT_SOURCES:
+            return f"{mod[len('repro_torch.'):]}:{f.f_code.co_name}"
+        f = f.f_back
+    return "?"
 
 
 @dataclasses.dataclass
@@ -98,9 +130,11 @@ class Counts:
     output_bytes: int
     peak_live_bytes: int
     ops: int
+    peak_block_bytes: int = 0
     seconds: float = 0.0
     coll_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     collectives: list = dataclasses.field(default_factory=list)
+    collective_origins: list = dataclasses.field(default_factory=list)
 
     @property
     def coll(self) -> int:
@@ -140,9 +174,17 @@ def _storages(tree) -> Dict[int, int]:
             for t in _tensors(tree)}
 
 
-def storage_bytes(tree) -> int:
-    """Bytes of the distinct storages of the tensors in ``tree``."""
-    return sum(_storages(tree).values())
+def block_bytes(n: int) -> int:
+    """The bytes of the block the CUDA caching allocator gives an
+    ``n``-byte storage: ``n`` rounded up to ``ALLOC_BLOCK`` (none for 0)."""
+    return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def storage_bytes(tree, blocks: bool = False) -> int:
+    """Bytes of the distinct storages of the tensors in ``tree`` (with
+    ``blocks``, of their allocator blocks)."""
+    return sum(block_bytes(n) if blocks else n
+               for n in _storages(tree).values())
 
 
 def _view_bytes(t: torch.Tensor) -> int:
@@ -153,7 +195,7 @@ class CountingMode(TorchDispatchMode):
     """Counts the ops run under it (see the module docstring). The live set
     is swept lazily: a storage's bytes stay in ``_tracked`` until a sweep
     finds it expired, so ``_tracked`` never undercounts; a sweep runs only
-    when a new storage could lift the peak, which keeps the peak exact."""
+    when a new storage could lift either peak, which keeps both exact."""
 
     def __init__(self):
         super().__init__()
@@ -161,15 +203,22 @@ class CountingMode(TorchDispatchMode):
         self.bytes = 0
         self.ops = 0
         self.peak_live_bytes = 0
+        self.peak_block_bytes = 0
         self.coll_bytes: Dict[str, int] = {}
         self.collectives: list = []
-        self._live: Dict[int, Tuple[StorageWeakRef, int]] = {}
+        self.collective_origins: list = []
+        self._live: Dict[int, Tuple[StorageWeakRef, int, int]] = {}
         self._tracked = 0
+        self._tracked_blocks = 0
+
+    def _forget(self, key) -> None:
+        _, n, b = self._live.pop(key)
+        self._tracked -= n
+        self._tracked_blocks -= b
 
     def _sweep(self) -> None:
-        dead = [k for k, (ref, _) in self._live.items() if ref.expired()]
-        for k in dead:
-            self._tracked -= self._live.pop(k)[1]
+        for k in [k for k, (ref, *_) in self._live.items() if ref.expired()]:
+            self._forget(k)
 
     def track(self, tree) -> int:
         """Registers the storages of the tensors in ``tree``; returns the
@@ -182,13 +231,18 @@ class CountingMode(TorchDispatchMode):
             if old is not None:
                 if not old[0].expired():
                     continue
-                self._tracked -= self._live.pop(key)[1]
+                self._forget(key)
             n = s.nbytes()
-            if self._tracked + n > self.peak_live_bytes:
+            b = block_bytes(n)
+            if (self._tracked + n > self.peak_live_bytes
+                    or self._tracked_blocks + b > self.peak_block_bytes):
                 self._sweep()
-            self._live[key] = (StorageWeakRef(s), n)
+            self._live[key] = (StorageWeakRef(s), n, b)
             self._tracked += n
+            self._tracked_blocks += b
             self.peak_live_bytes = max(self.peak_live_bytes, self._tracked)
+            self.peak_block_bytes = max(self.peak_block_bytes,
+                                        self._tracked_blocks)
             added += n
         return added
 
@@ -202,8 +256,12 @@ class CountingMode(TorchDispatchMode):
             size = int(args[-2])
         n *= size if kind == "reduce-scatter" else _XFER[kind]
         self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + n
+        outs = list(_tensors(out))
         self.collectives.append((kind, str(args[-1]), size,
-                                 [tuple(t.shape) for t in _tensors(out)], n))
+                                 [tuple(t.shape) for t in outs], n))
+        dtype = _HLO_DTYPES.get(outs[0].dtype, str(outs[0].dtype)) \
+            if outs else "?"
+        self.collective_origins.append((dtype, _collective_source()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -254,5 +312,7 @@ def count_call(fn: Callable, *args, **kwargs) -> Tuple[Any, Counts]:
     return out, Counts(flops=mode.flops, bytes=mode.bytes,
                        argument_bytes=arg_bytes, output_bytes=out_bytes,
                        peak_live_bytes=mode.peak_live_bytes, ops=mode.ops,
+                       peak_block_bytes=mode.peak_block_bytes,
                        seconds=seconds, coll_bytes=dict(mode.coll_bytes),
-                       collectives=list(mode.collectives))
+                       collectives=list(mode.collectives),
+                       collective_origins=list(mode.collective_origins))

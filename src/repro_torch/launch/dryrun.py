@@ -112,7 +112,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None,
     ``lm.prefill_forward``; decode: ``decode_step`` then the argmax as
     int32. With a ``DeviceMesh``: the partitioned program, the state
     placed by ``param_specs`` / ``cache_specs`` and the batch on the batch
-    axes (each rank's shards of the whole arguments)."""
+    axes (each rank's shards of the whole arguments); a microbatched train
+    step takes its batch whole and places each microbatch itself."""
     chunks = chunks or {}
     q = chunks.get("q_chunk", 512)
     kv = chunks.get("kv_chunk", 512)
@@ -131,7 +132,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, *, chunks=None,
         state = init_train_state(cfg, gen, device=dev, mesh=mesh)
         fn = make_train_step(cfg, loss_chunk=lc, q_chunk=q, kv_chunk=kv,
                              ssd_chunk=sc, microbatch=mb)
-        return fn, (state, {k: batch(v) for k, v in specs.items()})
+        whole = mb and mb < shape.global_batch
+        return fn, (state, {k: v if whole else batch(v)
+                            for k, v in specs.items()})
 
     params = lm.init_lm(cfg, gen, device=dev)
     if mesh is not None:
@@ -179,8 +182,8 @@ def fake_group(world: int, rank: int = 0):
 
 def trace_partitioned(cfg: ArchConfig, shape: ShapeConfig,
                       sizes: Dict[str, int], *, chunks=None,
-                      device: DeviceLike = "meta",
-                      rank: int = 0) -> Tuple[Counts, float]:
+                      device: DeviceLike = "meta", rank: int = 0
+                      ) -> Tuple[Counts, float]:
     """Rank ``rank``'s share of the cell's partitioned program over a mesh
     of axis sizes ``sizes``, traced once on ``device`` (``meta``: nothing
     allocated) under a fake process group of that many ranks, with the
@@ -306,17 +309,26 @@ def _probe_plan(cfg: ArchConfig):
     return "linear", [cfg.replace(n_layers=1), cfg.replace(n_layers=2)], cfg.n_layers
 
 
+def probe_chunks(shape: ShapeConfig, microbatch_div: int = 0
+                 ) -> Dict[str, int]:
+    """The reference's probe chunks (full-attention FLOPs are
+    chunk-invariant; larger chunks trace faster); with ``microbatch_div``,
+    microbatches of ``global_batch // microbatch_div`` rows."""
+    T = shape.seq_len
+    chunks = {"q_chunk": min(4096, T), "kv_chunk": min(4096, T),
+              "loss_chunk": min(4096, T), "ssd_chunk": 128}
+    if microbatch_div:
+        chunks["microbatch"] = max(1, shape.global_batch // microbatch_div)
+    return chunks
+
+
 def probe_roofline(cfg: ArchConfig, shape: ShapeConfig,
                    coll: Dict[str, float] = None) -> Dict[str, float]:
     """Full-depth one-card cost vector at the reference's probe chunks
     (every layer traced: nothing to extrapolate); ``coll``, a partitioned
     row's ``rolled_cost``, gives it that row's collectives (``coll`` and
     ``coll_<kind>``)."""
-    # full-attention FLOPs are chunk-invariant; larger chunks trace faster
-    T = shape.seq_len
-    chunks = {"q_chunk": min(4096, T), "kv_chunk": min(4096, T),
-              "loss_chunk": min(4096, T), "ssd_chunk": 128}
-    counts, _ = trace_cell(cfg, shape, chunks=chunks)
+    counts, _ = trace_cell(cfg, shape, chunks=probe_chunks(shape))
     vec = cost_vector(counts)
     if coll is not None:
         vec.update({k: v for k, v in coll.items() if k.startswith("coll")})

@@ -79,7 +79,11 @@ def _route(p, x2d: torch.Tensor, top_k: int, normalize: bool):
     """x2d: [T, D] -> (weights [T, k] f32, ids [T, k] int64, probs [T, E])."""
     logits = x2d.float() @ gather_weight(p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
-    w, ids = torch.topk(probs, top_k, dim=-1)
+    # ``jax.lax.top_k``'s order: equal probabilities (a saturated softmax
+    # underflows the rest to 0) by ascending expert id; ``torch.topk``
+    # leaves ties in no stated order
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[..., :top_k], ids[..., :top_k]
     if normalize:
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return w, ids, probs

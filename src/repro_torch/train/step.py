@@ -20,6 +20,7 @@ parallelism) and returns replicated metrics and tokens.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -30,8 +31,8 @@ from ..core.plan_cache import DeviceLike, resolve_device
 from ..models import lm
 from ..optim.adamw import (AdamWState, adamw_init, adamw_update,
                            cosine_schedule, tree_leaves, tree_map)
-from ..sharding import (distribute, mesh_of, on_batch_axes, param_specs,
-                        partitioned, use_mesh)
+from ..sharding import (batch_axes, distribute, mesh_of, on_batch_axes,
+                        param_specs, partitioned, use_mesh)
 
 __all__ = ["TrainState", "init_train_state", "materialize", "whole",
            "loss_and_grads", "make_train_step", "make_serve_step"]
@@ -125,6 +126,12 @@ def make_train_step(cfg: ArchConfig, *, peak_lr=3e-4, warmup=100,
     ``grad_norm``. With ``microbatch`` < B, each microbatch's gradients
     are cast to bf16 and summed in bf16 (each add rounds), then read as
     fp32 divided by the microbatch count, as the reference accumulates.
+    Under a mesh microbatch ``i`` is still the global rows ``[i * mb, (i
+    + 1) * mb)``, placed on the batch axes (a rank computes ``mb /
+    prod(batch axes)`` rows of it), so the batch comes whole (a plain
+    tensor every rank holds); each microbatch gathers the FSDP weights and
+    reduce-scatters its gradients, which are summed at the parameters'
+    placements.
     """
 
     def grads_of(params, inputs, labels):
@@ -144,34 +151,36 @@ def make_train_step(cfg: ArchConfig, *, peak_lr=3e-4, warmup=100,
             leaf.device
         inputs = torch.as_tensor(batch["inputs"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
-        if mesh is not None:
-            inputs = on_batch_axes(inputs, mesh)
-            labels = on_batch_axes(labels, mesh)
         B = inputs.shape[0]
-        nmb = 1
-        if microbatch and microbatch < B and mesh is not None:
-            raise NotImplementedError("microbatching runs on one card; the "
-                                      "partitioned step takes the batch "
-                                      "whole")
-        if microbatch and microbatch < B:
+        if not (microbatch and microbatch < B):
+            if mesh is not None:
+                inputs = on_batch_axes(inputs, mesh)
+                labels = on_batch_axes(labels, mesh)
+            loss, metrics, grads = grads_of(state.params, inputs, labels)
+            nmb = 1
+        else:
             if B % microbatch:
                 raise ValueError(f"batch {B} is not a multiple of the "
                                  f"microbatch {microbatch}")
+            if mesh is not None:
+                _check_microbatch(microbatch, mesh, inputs, labels)
             nmb = B // microbatch
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.bfloat16), state.params)
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            lsum = None
             for i in range(nmb):
+                # global rows [i*mb, (i+1)*mb), as the reference's reshape
+                # makes them; under a mesh each on the batch axes
                 sl = slice(i * microbatch, (i + 1) * microbatch)
-                l, metrics, g = grads_of(state.params, inputs[sl],
-                                         labels[sl])
+                x, y = inputs[sl], labels[sl]
+                if mesh is not None:
+                    x, y = on_batch_axes(x, mesh), on_batch_axes(y, mesh)
+                l, metrics, g = grads_of(state.params, x, y)
                 # bf16 accumulation halves the carried payload
                 tree_map(lambda a, x: a.add_(x.to(torch.bfloat16)), grads, g)
                 del g
-                lsum = lsum + l
+                lsum = l if lsum is None else lsum + l
             loss = lsum / nmb
-        else:
-            loss, metrics, grads = grads_of(state.params, inputs, labels)
 
         # +1: the schedule is evaluated for the step being TAKEN (lr(0)=0
         # would silently no-op the first optimizer step)
@@ -183,6 +192,20 @@ def make_train_step(cfg: ArchConfig, *, peak_lr=3e-4, warmup=100,
         return TrainState(params, opt), metrics
 
     return train_step
+
+
+def _check_microbatch(mb: int, mesh, *batch) -> None:
+    """A microbatched partitioned step takes the batch whole and places
+    each microbatch on the batch axes, which must divide it."""
+    if any(isinstance(t, DTensor) for t in batch):
+        raise ValueError("a microbatched partitioned step takes the batch "
+                         "whole (a plain tensor every rank holds), not a "
+                         "DTensor")
+    names = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n = math.prod(names[a] for a in batch_axes(mesh))
+    if mb % n:
+        raise ValueError(f"microbatch {mb} does not divide over the {n} "
+                         f"ranks of the batch axes {batch_axes(mesh)}")
 
 
 def make_serve_step(cfg: ArchConfig):

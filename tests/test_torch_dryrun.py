@@ -325,6 +325,29 @@ def test_peak_follows_frees_and_views():
     assert c.bytes == 1024 + 256                  # the view moves nothing
 
 
+def test_block_peak_rounds_each_storage_to_the_allocators_granule():
+    """``peak_block_bytes`` counts each live storage as the CUDA caching
+    allocator's block for it, rounded up to 512 bytes (none for an empty
+    storage), and peaks where the rounded sum does: here with ``b``,
+    whose raw bytes are fewer than ``a``'s."""
+    from repro_torch.analysis.counters import block_bytes, storage_bytes
+    assert [block_bytes(n) for n in (0, 1, 512, 513, 4096)] == \
+        [0, 512, 512, 1024, 4096]
+
+    def f(x):
+        a = torch.zeros(129)                      # 516 B: a 1024-B block
+        del a
+        b = [torch.zeros(1) for _ in range(3)]    # 12 B: 3 blocks
+        return b, torch.zeros(0)
+
+    x = torch.zeros(100)                          # 400 B: a 512-B block
+    (b, e), c = count_call(f, x)
+    assert c.peak_live_bytes == 400 + 516
+    assert c.peak_block_bytes == 512 + 3 * 512
+    assert storage_bytes((x, b, e)) == 412
+    assert storage_bytes((x, b, e), blocks=True) == 4 * 512
+
+
 def test_the_train_step_counts_remat_once():
     """With remat the forward of each layer runs twice (once more in the
     backward): the count is the step's, and the same step without remat

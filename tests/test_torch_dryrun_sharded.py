@@ -13,6 +13,11 @@ trace_partitioned``), against the reference's partitioning.
   bytes equal to ``sharded_argument_bytes`` exactly, collectives, and a
   roofline whose collective term is > 0; no row says "not in the port".
   No process group outlives a row.
+* A microbatched row (chunks carrying ``microbatch``, the batch handed to
+  the step whole): the plain row's FLOPs; every weight gathered over
+  "data" and every gradient reduce-scattered there once per microbatch
+  (``nmb`` times the plain row's all-gather and reduce-scatter bytes); the
+  whole batch among the arguments; a lower peak.
 
 The fake count against a real four-process ``gloo`` run of the same step
 is in ``tests/test_torch_sharded_step.py``, which has those processes.
@@ -157,6 +162,48 @@ def test_production_rows_trace_rank_zero(cut_cells, shape):
             pytest.approx(one["rolled_cost"]["flops"], rel=1e-3)
 
 
+def test_microbatched_row_traces_rank_zero(cut_cells):
+    """phi3 at full width, 2 layers, ``train_4k`` cut to T=512 on
+    ``pod16x16`` with ``microbatch`` = 64 (hillclimb's ``microbatch4``:
+    rank 0 computes 4 rows of each of 4 microbatches)."""
+    cfg, shapes = cut_cells
+    shape, sizes = shapes["train_4k"], make_production_mesh()
+    nmb = 4
+    chunks = {"microbatch": shape.global_batch // nmb}
+    plain, _ = D.trace_partitioned(cfg, shape, sizes)
+    mb, _ = D.trace_partitioned(cfg, shape, sizes, chunks=chunks)
+    assert not dist.is_initialized()
+    assert mb.flops == plain.flops > 0
+    for kind in ("all-gather", "reduce-scatter"):
+        assert mb.coll_bytes[kind] == nmb * plain.coll_bytes[kind], kind
+    # every rank holds the whole batch, not its 1/16 of it
+    whole = sum(t.numel() * t.element_size()
+                for t in D.input_specs(cfg, shape).values())
+    assert mb.argument_bytes - plain.argument_bytes == whole - whole // 16
+    assert mb.peak_live_bytes < plain.peak_live_bytes
+
+
+def test_microbatch_must_divide_over_the_batch_axes():
+    """A microbatch the batch axes do not divide, or a batch already placed
+    on them, is refused with the numbers named."""
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced("phi3-mini-3.8b")
+    shape = ShapeConfig("c", "train", 16, 8)
+    with pytest.raises(ValueError, match="microbatch 2 does not divide "
+                                         "over the 4 ranks"):
+        D.trace_partitioned(cfg, shape, {"data": 4, "model": 1},
+                            chunks={"microbatch": 2})
+    assert not dist.is_initialized()
+    with D.fake_group(2):
+        mesh = make_device_mesh({"data": 2, "model": 1}, device="meta")
+        fn, (state, batch) = D.build_cell(cfg, shape,
+                                          chunks={"microbatch": 4},
+                                          mesh=mesh)
+        placed = {k: S.on_batch_axes(v, mesh) for k, v in batch.items()}
+        with pytest.raises(ValueError, match="takes the batch whole"):
+            D.run_counted(fn, (state, placed), "train", mesh)
+
+
 def test_shard_redistributes_under_a_device_mesh():
     """Under a ``DeviceMesh`` context ``shard`` redistributes a DTensor to
     the reference's constraint and ``shard_heads`` follows the reference's
@@ -249,4 +296,5 @@ def test_phase21_on_cpu_at_reduced_configs(tmp_path):
         assert c["flops"] == m["flops"] > 0
         assert c["coll_bytes"] == m["coll_bytes"] and m["coll_bytes"]
         assert c["argument"] == m["argument"] == c["live"]
-        assert c["tracker_peak"] == m["peak"]
+        assert c["tracker_peak"] == m["peak"] == c["requested_peak"]
+        assert c["peak"] == m["peak_blocks"] >= m["peak"]

@@ -7,12 +7,17 @@ operator before and after a mutation, with the tuner attached,
 CPU), a frontier hit rate from recurring batches, a delta that repairs or
 drops the cached frontier, and a partitioned store's frontier identical
 to the monolithic one, ``serve_lm`` the LM engine's ``generate()`` and
-its slot-reuse admission. Each example also defaults to ``cuda``."""
+its slot-reuse admission, ``moe_block_dispatch`` the expert loads and
+``moe_block`` of both routings against the reference's from the
+reference's parameters (loads equal as integers, outputs within
+``1e-5 * max|ref|``) and its own claims (dropless; capacity 1.25 drops
+under skew). Each example also defaults to ``cuda``."""
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.examples import (quickstart, serve_gcn, serve_lm,
-                                  serve_sampled)
+from repro_torch.examples import (moe_block_dispatch, quickstart, serve_gcn,
+                                  serve_lm, serve_sampled)
 
 
 def test_quickstart_every_backend_against_the_oracle():
@@ -60,8 +65,62 @@ def test_serve_lm_end_to_end():
     assert out["stats"]["slots_reused"] > 0
 
 
+def _moe_claims(out):
+    """The example's claims: block dispatch dropless against the dropless
+    oracle; a capacity-1.25 dispatch drops tokens under skew."""
+    assert [r["loads"] for r in out.values()] and all(
+        sum(r["loads"]) == 2 * 128 * 2 for r in out.values())
+    for r in out.values():
+        assert r["block_err"] <= 1e-5, r["block_err"]
+    assert out["skewed routing"]["capacity_err"] > 0
+
+
+def test_moe_block_dispatch_end_to_end():
+    _moe_claims(moe_block_dispatch.main(["--device", "cpu"]))
+
+
+def test_moe_block_dispatch_against_the_reference():
+    """The reference example's parameters and tokens (``init_moe`` and
+    ``jax.random.normal`` from its keys) through the port's ``run``: the
+    loads of each routing equal the reference's, and ``moe_block``'s
+    output matches the reference's (its Pallas kernel in interpret mode)
+    within ``1e-5 * max|ref|``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.moe import init_moe, moe_block
+    from repro_torch.models.moe import params_from_jax
+    B, T, D, FF, E, k = (moe_block_dispatch.B, moe_block_dispatch.T,
+                         moe_block_dispatch.D, moe_block_dispatch.FF,
+                         moe_block_dispatch.E, moe_block_dispatch.K)
+    rp = init_moe(jax.random.PRNGKey(0), D, FF, E, dtype=jnp.float32)
+    rx = jax.random.normal(jax.random.PRNGKey(1), (B, T, D))
+    # XLA's CPU arithmetic flushes subnormals to zero: under the skewed
+    # router the softmax's tail is subnormal, and its ties at 0 decide
+    # the second expert of those tokens
+    assert torch.set_flush_denormal(True)
+    try:
+        out = moe_block_dispatch.run(params_from_jax(rp, device="cpu"),
+                                     torch.from_numpy(np.asarray(rx)))
+    finally:
+        torch.set_flush_denormal(False)
+    _moe_claims(out)
+    for name, bias in moe_block_dispatch.ROUTINGS:
+        p2 = dict(rp)
+        p2["router"] = rp["router"] + jnp.zeros((E,)).at[0].set(bias)
+        logits = rx.reshape(-1, D) @ p2["router"]
+        ids = jax.lax.top_k(jax.nn.softmax(logits, -1), k)[1].reshape(-1)
+        assert out[name]["loads"] == np.bincount(
+            np.asarray(ids), minlength=E).tolist(), name
+        want, _ = moe_block(p2, rx, top_k=k, n_experts=E,
+                            m_tile=moe_block_dispatch.M_TILE,
+                            use_pallas=True)
+        want = np.asarray(want)
+        err = float(np.abs(out[name]["y_block"].numpy() - want).max())
+        assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
+
+
 @pytest.mark.parametrize("mod", [quickstart, serve_gcn, serve_lm,
-                                 serve_sampled])
+                                 serve_sampled, moe_block_dispatch])
 def test_examples_default_to_cuda(mod):
     if torch.cuda.is_available():
         pytest.skip("this checks the CPU-only behaviour")

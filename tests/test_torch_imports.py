@@ -66,6 +66,41 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
         assert f"repro_torch.{mod}" in have
 
 
+# the reference's user scripts whose counterpart is not a module of
+# ``repro_torch.scripts``: the invariant checker is the port's analyzer
+# (``python -m repro_torch.statics``); the benchmark gate waits for the
+# port's benchmark
+SCRIPT_EXCEPTIONS = {"check_invariants.py": "repro_torch.statics",
+                     "check_bench.py": None}
+
+
+def test_every_example_and_script_has_a_counterpart():
+    """Every ``examples/*.py`` has a module of the same name under
+    ``repro_torch.examples``, every ``scripts/*.py`` one under
+    ``repro_torch.scripts`` or the counterpart ``SCRIPT_EXCEPTIONS``
+    names (None: none yet, and said why)."""
+    import repro_torch
+    have = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")}
+    root = os.path.dirname(SRC)
+    missing = []
+    for folder in ("examples", "scripts"):
+        files = sorted(f for f in os.listdir(os.path.join(root, folder))
+                       if f.endswith(".py") and f != "__init__.py")
+        assert len(files) >= 6, (folder, files)
+        for f in files:
+            want = f"repro_torch.{folder}.{f[:-3]}"
+            if folder == "scripts" and f in SCRIPT_EXCEPTIONS:
+                want = SCRIPT_EXCEPTIONS[f]
+                if want is None:
+                    continue
+            if want not in have:
+                missing.append(f"{folder}/{f} -> {want}")
+    assert missing == [], missing
+    assert set(SCRIPT_EXCEPTIONS) <= set(os.listdir(
+        os.path.join(root, "scripts")))
+
+
 def test_statics_loads_no_other_port_module():
     """The witness is installed before the rest of the port loads, so the
     statics package imports the standard library only."""

@@ -208,6 +208,24 @@ def test_skewed_router_block_dispatch_matches_reference():
         _aux_close(got_aux, aux)
 
 
+def test_router_ties_go_to_the_lower_expert_as_in_the_reference():
+    """A saturated router (one logit far above the rest: the softmax's
+    tail is exactly 0 in fp32) leaves the other experts tied; the port's
+    top-k takes them by ascending expert id, as ``jax.lax.top_k`` does."""
+    E, k, D = 8, 3, 4
+    x = np.zeros((5, D), np.float32)
+    x[:, 0] = [1.0, 2.0, 1.25, 3.0, 1.5]      # exp(-200 x) is 0 in fp32
+    router = np.zeros((D, E), np.float32)
+    router[0, 5] = 200.0                     # expert 5 takes every token
+    rw, rids, _ = ref_moe._route({"router": jnp.asarray(router)},
+                                 jnp.asarray(x), k, True)
+    w, ids, _ = port_moe._route({"router": torch.from_numpy(router)},
+                                torch.from_numpy(x), k, True)
+    assert np.asarray(rids).tolist() == [[5, 0, 1]] * 5
+    assert ids.tolist() == np.asarray(rids).tolist()
+    np.testing.assert_array_equal(w.numpy(), np.asarray(rw))
+
+
 def test_integer_valued_moe_block_is_exact():
     """Integer weights and inputs with one expert per token (k=1,
     unnormalized gates, so every gate is a probability): h, g and the

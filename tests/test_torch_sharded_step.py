@@ -14,12 +14,17 @@ its first moment, every gradient it used), ``prefill_forward``'s
 last-token logits (under ``torch.inference_mode``, as a server runs it)
 and three ``make_serve_step`` decode steps after ``pad_prefill_caches``,
 then one more after ``reset_decode_slot`` of slot 1, and on ``(2, 2)`` a
-crash and resume through ``train_loop``. Rank 0 writes the whole
-tensors. Meanwhile a fifth
+crash and resume through ``train_loop``, a microbatched train step
+(``MB`` = 2 rows a microbatch of B = 4, the first ``MB_T`` = 16 tokens
+of the batch) of every arch in fp32 and of
+phi3 in bf16 (counted), and the launcher (``launch.train.main`` with
+``--model-axis 2 --microbatch 2``) in the same group. Rank 0 writes the
+whole tensors. Meanwhile a fifth
 process runs the reference (``jax.jit``; the MoE arch's bf16 prefill and
 decode op by op, as ``tests/test_torch_lm.py`` runs them) from the same
-parameters (the port's ``init_lm``, seed 0) and this one the port's
-one-device program.
+parameters (the port's ``init_lm``, seed 0), its microbatched
+``make_train_step`` included, and this one the port's one-device program
+(and launcher).
 
 Bounds (the same math in other summation orders: the row-parallel
 all-reduces, the loss, the global norm):
@@ -30,16 +35,21 @@ all-reduces, the loss, the global norm):
   everywhere, within ``1e-6 + 1e-5 |w|`` where the gradient is not tiny);
 * bf16: within the reference's serving bound ``atol = rtol = 0.08``
   (``tests/test_serve.py:73``); the state within ``2.2 * lr`` (a bf16
-  leaf plus its rounding).
+  leaf plus its rounding);
+* a microbatched step (bf16 gradient sums, whose roundings may flip
+  between summation orders): loss and grad_norm within ``1e-5`` relative,
+  the updated masters within ``2.2 * lr``.
 
 The collectives of each bf16 train step on ``(2, 2)`` (the parameters'
 dtype as initialised), counted by ``CountingMode`` on rank 0, are only
 FSDP's weight all-gathers and gradient reduce-scatters over "data",
 "model"'s tensor-parallel all-reduces and MoE's resharding, the loss's and
 the global norm's reductions; no all-gather over "data" of a ``[B, T,
-d_model]`` activation. Rank 0's FLOPs and collective bytes of reduced
-phi3's step equal what the dry run counts for the same step on ``meta``
-under a ``fake`` group of four ranks in this process.
+d_model]`` activation; microbatched, each microbatch gathers the
+weights and reduce-scatters its gradients again. Rank 0's FLOPs and
+collective bytes of reduced phi3's step, plain and microbatched, equal
+what the dry run counts for the same step on ``meta`` under a ``fake``
+group of four ranks in this process.
 """
 import os
 import subprocess
@@ -65,8 +75,18 @@ CH = dict(q_chunk=16, kv_chunk=16, ssd_chunk=16)
 KW = dict(peak_lr=1e-3, warmup=1, total=10, loss_chunk=16, **CH)
 FP32_REL = 1e-5
 BF16_TOL = 0.08
-JOIN_S = 300.0
+# a hang guard: the processes take ~100-110 s alone, 2-3x under a loaded
+# suite
+JOIN_S = 450.0
 RESTART_STEPS = 4
+MB, MB_T = 2, 16        # rows a microbatch (of B); the tokens it takes
+# the archs whose microbatched step is also held against the reference's
+# (a dense and a MoE family; the one-device microbatched step of every arch
+# is held against the reference in tests/test_torch_train_step_mb.py)
+MB_REF_ARCHS = ("phi3-mini-3.8b", "deepseek-moe-16b")
+LAUNCH_REL = 1e-3      # the launcher's losses, mesh against one device
+LAUNCH = ["--model-axis", "2", "--microbatch", "2", "--device", "cpu",
+          "--steps", "2", "--batch", "4", "--seq", "16"]
 
 
 def groups(sizes):
@@ -96,7 +116,6 @@ def _tree_paths(tree, path=""):
 def _partitioned(arch, prec, sizes, mesh, names, wd, count):
     """One arch at one precision on ``mesh``: every result whole."""
     from repro_torch import sharding as S
-    from repro_torch.analysis.counters import count_call
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm, moe
     from repro_torch.optim.adamw import adamw_init, tree_map
@@ -111,20 +130,11 @@ def _partitioned(arch, prec, sizes, mesh, names, wd, count):
         fresh = tree_map(torch.clone, params)
         return S.distribute(fresh, S.param_specs(fresh, mesh), mesh)
 
-    out = {}
-    step = make_train_step(cfg, **KW)
     state = TrainState(placed(), None)
-    state = state._replace(opt=adamw_init(state.params))
-    batch = {"inputs": data["x"], "labels": data["y"]}
-    if count:
-        (state, metrics), c = count_call(step, state, batch)
-        out["counts"] = {"flops": c.flops, "coll_bytes": c.coll_bytes}
-        out["collectives"] = [(kind, names.get(g, g), size, shapes, n)
-                              for kind, g, size, shapes, n in c.collectives]
-    else:
-        state, metrics = step(state, batch)
-    out["metrics"] = {k: whole(v) for k, v in metrics.items()}
-    out["state"] = {k: whole(v) for k, v in _tree_paths(state).items()}
+    out = _step_once(make_train_step(cfg, **KW),
+                     state._replace(opt=adamw_init(state.params)),
+                     {"inputs": data["x"], "labels": data["y"]}, names,
+                     count)
     params_d = placed()
     with torch.inference_mode():       # as a server runs it
         lg, st = lm.prefill_forward(cfg, params_d, data["prompt"], **CH)
@@ -140,6 +150,44 @@ def _partitioned(arch, prec, sizes, mesh, names, wd, count):
         st = lm.reset_decode_slot(cfg, lm.track_slot_starts(st, PB), 1)
     out["decode"].append(serve(params_d, st, data["tokens"][:, :1])[1])
     return out
+
+
+def _step_once(step, state, batch, names, count):
+    """One train step: metrics and state whole; with ``count``, rank 0's
+    FLOPs, collective bytes and collectives (group names as the mesh's
+    dims)."""
+    from repro_torch.analysis.counters import count_call
+    from repro_torch.train.step import whole
+    out = {}
+    if count:
+        (state, metrics), c = count_call(step, state, batch)
+        out["counts"] = {"flops": c.flops, "coll_bytes": c.coll_bytes}
+        out["collectives"] = [(kind, names.get(g, g), size, shapes, n)
+                              for kind, g, size, shapes, n in c.collectives]
+    else:
+        state, metrics = step(state, batch)
+    out["metrics"] = {k: whole(v) for k, v in metrics.items()}
+    out["state"] = {k: whole(v) for k, v in _tree_paths(state).items()}
+    return out
+
+
+def _microbatched(arch, prec, sizes, mesh, names, wd, count):
+    """One train step of ``MB``-row microbatches on ``mesh``, the whole
+    batch handed to every rank."""
+    from repro_torch import sharding as S
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.train.step import TrainState, make_train_step
+    params = torch.load(os.path.join(wd, f"params_{arch}_{prec}.pt"))
+    data = torch.load(os.path.join(wd, f"batch_{arch}.pt"))
+    moe.DISPATCH_GROUPS = groups(sizes)
+    p = tree_map(torch.clone, params)
+    p = S.distribute(p, S.param_specs(p, mesh), mesh)
+    step = make_train_step(get_reduced(arch), microbatch=MB, **KW)
+    return _step_once(step, TrainState(p, adamw_init(p)),
+                      {"inputs": data["x"][:, :MB_T],
+                       "labels": data["y"][:, :MB_T]}, names, count)
 
 
 def _restart(mesh, wd):
@@ -210,6 +258,17 @@ def _worker(rank, init_file, wd):
                 res = _restart(mesh, wd)
                 if rank == 0:
                     torch.save(res, os.path.join(wd, "restart.pt"))
+                mb = {(a, "fp32"): _microbatched(a, "fp32", sizes, mesh,
+                                                 names, wd, count=False)
+                      for a in ARCHS}
+                mb[ARCHS[0], "bf16"] = _microbatched(
+                    ARCHS[0], "bf16", sizes, mesh, names, wd, count=True)
+                from repro_torch.launch import train as launcher
+                out = launcher.main(LAUNCH)    # in this group
+                if rank == 0:
+                    torch.save(mb, os.path.join(wd, "mb.pt"))
+                    torch.save([h["loss"] for h in out["history"]],
+                               os.path.join(wd, "launch.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -268,6 +327,20 @@ def _reference(cfg, rp, data, prec):
     return out
 
 
+def _reference_mb(cfg, rp, data):
+    """The reference's microbatched ``make_train_step`` under ``jax.jit``
+    (a scan over ``MB``-row microbatches, bf16 gradient sums)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim.adamw import adamw_init
+    from repro.train.step import TrainState, make_train_step
+    step = jax.jit(make_train_step(cfg, microbatch=MB, **KW))
+    state, m = step(TrainState(rp, adamw_init(rp)),
+                    {"inputs": jnp.asarray(data["x"][:, :MB_T]),
+                     "labels": jnp.asarray(data["y"][:, :MB_T])})
+    return {"metrics": m, "params": state.params}
+
+
 def _one_device(pcfg, params, data, prec):
     """The port's one-device results."""
     from repro_torch.models import lm as P
@@ -294,6 +367,18 @@ def _one_device(pcfg, params, data, prec):
     out["decode"].append(serve(params, st,
                                torch.from_numpy(data["tokens"][:, :1]))[1])
     return out
+
+
+def _one_device_mb(pcfg, params, data):
+    """The port's one-device microbatched step: metrics and state."""
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.train.step import TrainState, make_train_step
+    p = tree_map(torch.clone, params)
+    state, m = make_train_step(pcfg, microbatch=MB, **KW)(
+        TrainState(p, adamw_init(p)),
+        {"inputs": torch.from_numpy(data["x"][:, :MB_T]),
+         "labels": torch.from_numpy(data["y"][:, :MB_T])})
+    return {"metrics": m, "state": _paths(state)}
 
 
 def step_grads(res):
@@ -337,6 +422,13 @@ def _needed():
                    for m, p in RUNS for a in ARCHS})
 
 
+def _mb_groups(arch):
+    """DISPATCH_GROUPS of the microbatched runs (on (2, 2))."""
+    from repro_torch.configs import get_reduced
+    return (groups(MESHES["2x2"]) if get_reduced(arch).family == "moe"
+            else 1)
+
+
 def _jax_tree(tree):
     """The port's parameter tree as the reference's (the same keys and
     shapes, ``params_from_jax``'s converse), each leaf in its dtype."""
@@ -368,6 +460,10 @@ def _reference_process(wd):
         RM.DISPATCH_GROUPS = gs
         res = _reference(cfg, rp, data, prec)
         out[arch, prec, gs] = jax.tree.map(np.asarray, res)
+        if prec == "fp32" and gs == _mb_groups(arch) \
+                and arch in MB_REF_ARCHS:
+            out["mb", arch] = jax.tree.map(np.asarray,
+                                           _reference_mb(cfg, rp, data))
     with open(os.path.join(wd, "reference.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -435,6 +531,14 @@ def runs(tmp_path_factory):
             params = torch.load(os.path.join(wd, f"params_{arch}_{prec}.pt"))
             one[arch, prec, gs] = _one_device(port_reduced(arch), params,
                                               inputs[arch], prec)
+        for arch in ARCHS:
+            PM.DISPATCH_GROUPS = _mb_groups(arch)
+            params = torch.load(os.path.join(wd, f"params_{arch}_fp32.pt"))
+            one["mb", arch] = _one_device_mb(port_reduced(arch), params,
+                                             inputs[arch])
+        PM.DISPATCH_GROUPS = 1
+        from repro_torch.launch import train as launcher
+        launch_one = [h["loss"] for h in launcher.main(LAUNCH)["history"]]
         t_one = time.perf_counter() - t0
     finally:
         PM.DISPATCH_GROUPS = 1
@@ -445,15 +549,20 @@ def runs(tmp_path_factory):
             raise RuntimeError("\n".join(errs + errs_ref))
     with open(os.path.join(wd, "reference.pkl"), "rb") as f:
         refs = pickle.load(f)
-    want = {k: (refs[k], one[k]) for k in one}
+    want = {k: (refs[k], one[k]) for k in one if k[0] != "mb"}
     got = {(m, a, p): torch.load(os.path.join(wd, f"res_{m}_{a}_{p}.pt"))
            for m, p in RUNS for a in ARCHS}
     restart = torch.load(os.path.join(wd, "restart.pt"))
     restart["ckpt"] = os.path.join(wd, "ckpt")
+    mb = {"got": torch.load(os.path.join(wd, "mb.pt")),
+          "one": {a: one["mb", a] for a in ARCHS},
+          "ref": {a: refs["mb", a] for a in MB_REF_ARCHS},
+          "launch": torch.load(os.path.join(wd, "launch.pt")),
+          "launch_one": launch_one}
     print(f"[sharded] inputs {t0 - t_in:.1f}s; port one-device "
           f"{t_one:.1f}s, the ranks {t_ranks:.1f}s, the reference "
           f"{t_ref:.1f}s")
-    return {"got": got, "want": want, "restart": restart,
+    return {"got": got, "want": want, "restart": restart, "mb": mb,
             "s": time.perf_counter() - t0}
 
 
@@ -598,10 +707,13 @@ def test_collectives_are_fsdp_and_tp(runs, a):
     "data" gathers a weight shard (never a [B, T, d] activation); "model"
     carries the tensor-parallel all-reduces and reduce-scatters and MoE's
     resharding; the world group only the global norm."""
+    got, _ = _pair(runs, "2x2", a, "bf16")
+    _check_fsdp_and_tp(got["collectives"], a)
+
+
+def _check_fsdp_and_tp(coll, a):
     from repro_torch.configs import get_reduced
     cfg = get_reduced(a)
-    got, _ = _pair(runs, "2x2", a, "bf16")
-    coll = got["collectives"]
     kinds = {(k, g) for k, g, *_ in coll}
     assert ("all-gather", "data") in kinds
     assert ("reduce-scatter", "data") in kinds
@@ -619,25 +731,99 @@ def test_collectives_are_fsdp_and_tp(runs, a):
                         (T, cfg.d_model)), (kind, g, shapes)
 
 
+def test_microbatched_collectives_are_fsdp_and_tp(runs):
+    """phi3's microbatched bf16 step on (2, 2): the same kinds of
+    collectives, and each of the B / MB microbatches gathers every weight
+    shard over "data" and reduce-scatters its gradients there again."""
+    a = ARCHS[0]
+    coll = runs["mb"]["got"][a, "bf16"]["collectives"]
+    _check_fsdp_and_tp(coll, a)
+    plain, _ = _pair(runs, "2x2", a, "bf16")
+
+    def over_data(cs, kind):
+        return sorted((tuple(map(tuple, shp)), n) for k, g, _, shp, n in cs
+                      if k == kind and g == "data")
+    for kind in ("all-gather", "reduce-scatter"):
+        assert over_data(coll, kind) == sorted(
+            over_data(plain["collectives"], kind) * (B // MB)), kind
+
+
+def _fake_count(microbatch=None, seq=T):
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    chunks = dict(CH, loss_chunk=16, microbatch=microbatch)
+    c, _ = D.trace_partitioned(get_reduced("phi3-mini-3.8b"),
+                               ShapeConfig("c", "train", seq, B),
+                               MESHES["2x2"], chunks=chunks)
+    return c
+
+
 def test_fake_group_count_equals_the_gloo_run(runs):
     """The dry run's count of reduced phi3's train step, rank 0 of a fake
     four-rank group on meta, against rank 0's count of the same step in
     the four gloo processes: FLOPs and collective bytes of every kind
     equal."""
     import torch.distributed as dist
-    from repro_torch.configs import get_reduced
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun as D
     got = runs["got"]["2x2", "phi3-mini-3.8b", "bf16"]["counts"]
-    chunks = dict(CH, loss_chunk=16)
-    c, _ = D.trace_partitioned(get_reduced("phi3-mini-3.8b"),
-                               ShapeConfig("c", "train", T, B),
-                               MESHES["2x2"], chunks=chunks)
+    c = _fake_count()
     assert not dist.is_initialized()
     assert got["flops"] == c.flops > 0
     assert got["coll_bytes"] == c.coll_bytes
     assert set(c.coll_bytes) >= {"all-gather", "reduce-scatter",
                                  "all-reduce"}
+
+
+def test_fake_group_count_equals_the_gloo_run_microbatched(runs):
+    """The same for the microbatched step (a dry-run row whose chunks carry
+    ``microbatch``): equal counts, the plain step's FLOPs."""
+    got = runs["mb"]["got"]["phi3-mini-3.8b", "bf16"]["counts"]
+    c = _fake_count(MB, MB_T)
+    assert got["flops"] == c.flops == _fake_count(seq=MB_T).flops
+    assert got["coll_bytes"] == c.coll_bytes
+
+
+@pytest.mark.parametrize("a", ARCHS)
+def test_microbatched_train_step(runs, a):
+    """A step of ``MB``-row microbatches on (2, 2) in fp32 against the
+    port's one-device microbatched step and, for ``MB_REF_ARCHS``, the
+    reference's (``jax.jit`` of ``make_train_step(microbatch=MB)``): loss,
+    grad_norm and ce (the last microbatch's) within ``1e-5`` relative, lr
+    equal, every updated parameter and master within ``2.2 * lr``."""
+    got = runs["mb"]["got"][a, "fp32"]
+    one, ref = runs["mb"]["one"][a], runs["mb"]["ref"].get(a)
+    wants = [(one["metrics"], "one device")]
+    if ref is not None:
+        wants.append((ref["metrics"], "reference"))
+    for k in ("loss", "grad_norm", "ce"):
+        g = float(got["metrics"][k])
+        for m, who in wants:
+            want = float(m[k])
+            assert abs(g - want) <= FP32_REL * abs(want), (k, who, g, want)
+    lr = float(got["metrics"]["lr"])
+    assert lr == float(one["metrics"]["lr"])
+    assert set(got["state"]) == set(one["state"])
+    rp = _ref_paths(ref["params"]) if ref is not None else {}
+    for k, v in got["state"].items():
+        if k.startswith(("opt.master", "params")):
+            _master_close(v, one["state"][k], None, lr, "fp32", k)
+        if k.startswith("params.") and rp:
+            _master_close(v, rp[k[len("params."):]], None, lr, "fp32",
+                          f"{k} vs reference")
+
+
+def test_launcher_microbatched_on_the_mesh(runs):
+    """``launch.train.main(--model-axis 2 --microbatch 2)`` in the ranks'
+    group (a 2 x 2 mesh) against the same launch on one device: both run
+    their steps on the same rows from the same parameters, so each loss
+    agrees within ``LAUNCH_REL``: well above what the mesh's sums in other
+    orders move the bf16 model's losses by, below what the same parameters
+    on other rows of the batch (a rank's own, or the next step's) move them
+    by."""
+    got, want = runs["mb"]["launch"], runs["mb"]["launch_one"]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert np.isfinite(g) and abs(g - w) <= LAUNCH_REL * abs(w), (g, w)
 
 
 def test_distributed_crash_and_resume_is_bit_equal(runs):

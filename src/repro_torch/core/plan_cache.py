@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..spans import enabled, span
 from .graph import CSRGraph, degree_sort_csr
 from .partition import (
     BlockPartition,
@@ -171,28 +172,49 @@ def build_partition_plan(g: CSRGraph, cfg: PartitionConfig,
     """Run the full O(n) preprocessing pipeline once and stage the slabs,
     ``inv_perm`` and COO arrays as tensors on ``device``."""
     dev = resolve_device(device)
-    g.validate()
-    gs = degree_sort_csr(g)
-    pats = get_partition_patterns(
-        cfg.max_block_warps, cfg.max_warp_nzs, mode=cfg.mode,
-        max_rows_per_block=cfg.max_rows_per_block,
-        warp_nzs_override=cfg.warp_nzs_table)
-    bp = block_level_partition(gs, pats)
-    slabs_np = pack_slabs(gs, bp)
-    slabs = _stage({k: v for k, v in slabs_np.items()
-                    if isinstance(v, np.ndarray)}, dev)
-    slabs["R"], slabs["C"] = slabs_np["R"], slabs_np["C"]
+    with span("plan.sort", cpu_clock=True, rows=g.n_rows, nnz=g.nnz):
+        g.validate()
+        gs = degree_sort_csr(g)
+    with span("plan.partition", cpu_clock=True) as sp:
+        pats = get_partition_patterns(
+            cfg.max_block_warps, cfg.max_warp_nzs, mode=cfg.mode,
+            max_rows_per_block=cfg.max_rows_per_block,
+            warp_nzs_override=cfg.warp_nzs_table)
+        bp = block_level_partition(gs, pats)
+        if enabled():
+            sp.set(blocks=bp.num_blocks, split_rows=int(
+                np.unique(bp.meta[bp.is_split, 2]).size))
+    with span("plan.pack", cpu_clock=True) as sp:
+        slabs_np = pack_slabs(gs, bp)
+        sp.set(slots=bp.num_blocks * int(slabs_np["C"]))
+    with span("plan.copy", cpu_clock=True) as sp:
+        slabs = _stage({k: v for k, v in slabs_np.items()
+                        if isinstance(v, np.ndarray)}, dev)
+        slabs["R"], slabs["C"] = slabs_np["R"], slabs_np["C"]
 
-    inv_perm = np.empty(gs.n_rows, dtype=np.int64)
-    inv_perm[gs.perm] = np.arange(gs.n_rows)
+        inv_perm = np.empty(gs.n_rows, dtype=np.int64)
+        inv_perm[gs.perm] = np.arange(gs.n_rows)
 
-    # COO is cheap to keep and doubles as the baseline path
-    row_of = np.repeat(np.arange(g.n_rows, dtype=np.int64), np.diff(g.rowptr))
-    staged = _stage({"inv_perm": inv_perm, "coo_row": row_of,
-                     "coo_col": np.asarray(g.colidx, dtype=np.int64),
-                     "coo_val": np.asarray(g.values, dtype=np.float32)}, dev)
+        # COO is cheap to keep and doubles as the baseline path
+        row_of = np.repeat(np.arange(g.n_rows, dtype=np.int64),
+                           np.diff(g.rowptr))
+        staged = _stage({"inv_perm": inv_perm, "coo_row": row_of,
+                         "coo_col": np.asarray(g.colidx, dtype=np.int64),
+                         "coo_val": np.asarray(g.values, dtype=np.float32)},
+                        dev)
+        if enabled():
+            sp.set(bytes=sum(t.numel() * t.element_size() for t in
+                             [*staged.values(), *slabs.values()]
+                             if isinstance(t, torch.Tensor)))
+            # a copy from pageable memory may return before it lands
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    if not graph_hash:
+        with span("plan.hash", cpu_clock=True,
+                  bytes=8 * (g.n_rows + 1) + 12 * g.nnz + 24):
+            graph_hash = graph_content_hash(g)
     return PartitionPlan(
-        key=(graph_hash or graph_content_hash(g), cfg),
+        key=(graph_hash, cfg),
         n_rows=g.n_rows, n_cols=g.n_cols, nnz=g.nnz,
         slabs=slabs, partition=bp, **staged)
 

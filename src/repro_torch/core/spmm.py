@@ -38,6 +38,7 @@ from .plan_cache import (
     resolve_device,
 )
 from ..kernels import ops as kops
+from ..spans import span
 
 Backend = Literal["accel", "auto", "pallas", "windowed", "hbm",
                   "blocked", "segment", "warp", "dense"]
@@ -71,14 +72,17 @@ class AccelSpMM:
     def __call__(self, x: torch.Tensor,
                  backend: Optional[Backend] = None) -> torch.Tensor:
         be = backend or self.backend
-        if be in _KERNEL_OPS:
-            out_sorted = _KERNEL_OPS[be](self.slabs, x, self.n_rows)
-            return out_sorted[self.inv_perm]
-        if be == "blocked":
-            out_sorted = kops.spmm_blocked(
-                self.slabs["colidx"], self.slabs["values"],
-                self.slabs["rowloc"], self.slabs["out_row"], x, self.n_rows)
-            return out_sorted[self.inv_perm]
+        if be in _KERNEL_OPS or be == "blocked":
+            with span("spmm.kernel"):
+                if be == "blocked":
+                    out_sorted = kops.spmm_blocked(
+                        self.slabs["colidx"], self.slabs["values"],
+                        self.slabs["rowloc"], self.slabs["out_row"], x,
+                        self.n_rows)
+                else:
+                    out_sorted = _KERNEL_OPS[be](self.slabs, x, self.n_rows)
+            with span("spmm.unpermute"):
+                return out_sorted[self.inv_perm]
         if be == "segment":
             contrib = self.coo_val[:, None] * x[self.coo_col].float()
             out = torch.zeros((self.n_rows, x.shape[1]), dtype=torch.float32,

@@ -24,6 +24,7 @@ from ..core.graph import CSRGraph, gcn_normalize
 from ..core.plan_cache import DeviceLike, resolve_device
 from ..data.graphs import make_power_law_graph, node_features, node_labels
 from ..models.gcn import GraphOp, gcn_loss, init_gcn
+from ..spans import span
 
 PRESETS = {
     # name: (nodes, edges, dims, classes, steps)
@@ -74,8 +75,10 @@ def loss_and_grads(params: Params, aggr: Callable, x: torch.Tensor,
     tree = [dict(p) for p in params]
     for (i, k), t in zip(leaves, live):
         tree[i][k] = t
-    loss = gcn_loss(tree, aggr, x, labels, variant)
-    grads = torch.autograd.grad(loss, live)
+    with span("train.forward"):
+        loss = gcn_loss(tree, aggr, x, labels, variant)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, live)
     out: Params = [{} for _ in params]
     for (i, k), gr in zip(leaves, grads):
         out[i][k] = gr
@@ -86,12 +89,14 @@ def sgd_step(params: Params, aggr: Callable, x: torch.Tensor,
              labels: torch.Tensor, variant: str, lr: float) -> float:
     """One step of ``p - lr * g`` on every parameter, in place; returns
     the loss before the step."""
-    loss, grads = loss_and_grads(params, aggr, x, labels, variant)
-    with torch.no_grad():
-        for p, gp in zip(params, grads):
-            for k in p:
-                p[k] -= lr * gp[k]
-    return float(loss)
+    with span("train.step"):
+        loss, grads = loss_and_grads(params, aggr, x, labels, variant)
+        with span("train.update"), torch.no_grad():
+            for p, gp in zip(params, grads):
+                for k in p:
+                    p[k] -= lr * gp[k]
+        with span("train.readback"):
+            return float(loss)
 
 
 def train(params: Params, aggr: Callable, x: torch.Tensor,

@@ -22,6 +22,7 @@ import torch
 from ..core.graph import CSRGraph, csr_transpose
 from ..core.plan_cache import DeviceLike, PlanCache, resolve_device
 from ..core.spmm import AccelSpMM, make_accel_spmm
+from ..spans import span
 from .layers import dense_init
 
 
@@ -39,11 +40,14 @@ class GraphOp:
               device: DeviceLike = None, **kw) -> "GraphOp":
         """With ``plan_cache``, both A' and A'^T plans are cached: rebuilding
         the op for a recurring graph does zero partitioning work."""
-        return cls(
-            fwd=make_accel_spmm(g_norm, backend=backend,
-                                plan_cache=plan_cache, device=device, **kw),
-            bwd=make_accel_spmm(csr_transpose(g_norm), backend=backend,
-                                plan_cache=plan_cache, device=device, **kw))
+        with span("plan.build", cpu_clock=True):
+            fwd = make_accel_spmm(g_norm, backend=backend,
+                                  plan_cache=plan_cache, device=device, **kw)
+            with span("plan.transpose", cpu_clock=True, nnz=g_norm.nnz):
+                g_t = csr_transpose(g_norm)
+            bwd = make_accel_spmm(g_t, backend=backend,
+                                  plan_cache=plan_cache, device=device, **kw)
+        return cls(fwd=fwd, bwd=bwd)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return _Aggregate.apply(x, self)
@@ -57,12 +61,14 @@ class _Aggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, op: GraphOp) -> torch.Tensor:
         ctx.op = op
-        return op.fwd(x)
+        with span("aggr.fwd"):
+            return op.fwd(x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # autograd may hand an expanded (stride-0) or strided grad
-        return ctx.op.bwd(g.float().contiguous()).to(g.dtype), None
+        with span("aggr.bwd"):
+            return ctx.op.bwd(g.float().contiguous()).to(g.dtype), None
 
 
 def init_gcn(generator: torch.Generator, dims: List[int],

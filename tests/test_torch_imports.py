@@ -62,7 +62,7 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
     assert missing == [], missing
     # the port's own modules beside the reference's
     for mod in ("statics.launch_rules", "statics.__main__",
-                "analysis.counters", "kernels.build"):
+                "analysis.counters", "kernels.build", "spans"):
         assert f"repro_torch.{mod}" in have
 
 

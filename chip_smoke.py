@@ -70,8 +70,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``grad_bound_rel``; one backward aggregation ``bwd(g)`` at F=4096
    against the fp64 CSR oracle of A'^T within the
    summation bound; then 5 SGD steps (lr 1e-2) through the trainer's
-   ``train`` loop: losses finite and falling, K1 launched 18 times per step
-   (9 on the A' plan, 9 on the A'^T plan); the median step time by CUDA
+   ``train`` loop: losses finite and falling, K1 launched per step as
+   ``models/gcn.py::transform_first`` places each layer (18: 9 on the A'
+   plan, 9 on the A'^T plan); the median step time by CUDA
    events, K1's share of a step's device time by torch.profiler, peak
    memory; a checkpoint of the final parameters restored bit for bit with
    the same loss; ``sage`` and ``gin`` at the ``tiny`` preset against the
@@ -1425,9 +1426,9 @@ def grad_bound_rel(C, layers):
     against the twin. Each aggregation's two fp32 sums differ from the
     exact one by at most (C + 2) u of ``|A| @ |x|`` per row (C products in
     a block, split partials, the add into zero); the forward and backward
-    passes run ``2 * layers`` aggregations, each adding at most its own
-    relative error, and the pair of paths doubles it. Held per parameter
-    against ``max |grad|`` of the twin's."""
+    passes run at most ``2 * layers`` aggregations, each adding at most its
+    own relative error, and the pair of paths doubles it. Held per
+    parameter against ``max |grad|`` of the twin's."""
     return 2 * 2 * layers * (C + 2) * U
 
 
@@ -1473,7 +1474,7 @@ def phase_train(torch, dev, card_line):
     from repro_torch.examples import train_gcn as tg
     from repro_torch.kernels.spmm_accel import (GATHER_INSTANCES,
                                                 spmm_block_slabs)
-    from repro_torch.models.gcn import GraphOp, gcn_loss
+    from repro_torch.models.gcn import GraphOp, gcn_loss, transform_first
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1553,12 +1554,16 @@ def phase_train(torch, dev, card_line):
         f"A'^T {bwd.launches}); by instance {by_instance}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite or not falling")
-    if steps_launches != [2 * layers] * TRAIN_STEPS or \
+    # A'^T runs for every layer but one that aggregates its raw features
+    bwd_per_step = sum(i > 0 or transform_first("gcn", *p["w"].shape, i > 0,
+                                                True)
+                       for i, p in enumerate(prob.params))
+    if steps_launches != [layers + bwd_per_step] * TRAIN_STEPS or \
             fwd.launches != layers * TRAIN_STEPS or \
-            bwd.launches != layers * TRAIN_STEPS:
+            bwd.launches != bwd_per_step * TRAIN_STEPS:
         raise AssertionError(f"K1 launches per step {steps_launches}, A' "
                              f"{fwd.launches}, A'^T {bwd.launches}: expected "
-                             f"{layers} + {layers} per step")
+                             f"{layers} + {bwd_per_step} per step")
 
     # where a step's device time goes: K1 against everything else
     with profile(activities=[ProfilerActivity.CPU,

@@ -8,7 +8,8 @@ presets, graph, features, labels and update (plain SGD, ``p - lr * g``),
 with a checkpoint every 100 steps. The aggregation runs forward on A' and
 backward on A'^T through ``--backend`` (K1 by default) on ``--device``
 (``cuda`` by default). The 100m preset is a ~106M-parameter GCN: each step
-launches K1 18 times, 9 on A' and 9 on A'^T.
+launches K1 18 times, 9 on A' and 9 on A'^T (a trained ``gcn`` layer
+aggregates after its product, ``models/gcn.py::transform_first``).
 """
 from __future__ import annotations
 

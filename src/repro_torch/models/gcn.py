@@ -5,6 +5,21 @@ transform then sparse feature aggregation (paper §II-A). The aggregation runs
 through :class:`repro_torch.core.spmm.AccelSpMM` (degree sorting +
 block-level partition + combined-warp feature tiling).
 
+Placement: ``A'(h W)`` and ``(A' h) W`` are the same function, and the
+aggregation's cost follows the width it gathers. ``gcn`` and ``sage``
+layers (for ``sage``, the neighbour term; ``h W_self`` stays as it is)
+pick the order per layer with :func:`transform_first` from the shape of
+``W`` and from which of ``h`` and ``W`` need a gradient: transforming first
+aggregates ``d_out`` wide, forward and again backward whenever ``h W``
+needs a gradient; aggregating first aggregates ``d_in`` wide, and backward
+only where ``h`` needs one (a first layer's raw features do not), but
+keeps ``A' h`` (n x d_in) for the gradient of ``W``. No layer holds more
+for the backward than its written order does: a ``gcn`` layer (written
+transform first) aggregates first only where ``W`` needs no gradient.
+Otherwise the narrower order wins, and a tie keeps the written order:
+``gcn`` transforms first, ``sage`` aggregates first. GIN's aggregation sits
+inside a sum ahead of a nonlinearity, and keeps its place.
+
 Gradients: ``GraphOp`` is a ``torch.autograd.Function`` whose backward is
 a second ``AccelSpMM`` over A'^T (d/dX of A'.X is A'^T.X-bar), so training
 runs the paper's operator, and K1 on the card, in both directions. The
@@ -61,13 +76,13 @@ class _Aggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, op: GraphOp) -> torch.Tensor:
         ctx.op = op
-        with span("aggr.fwd"):
+        with span("aggr.fwd", f=x.shape[1]):
             return op.fwd(x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # autograd may hand an expanded (stride-0) or strided grad
-        with span("aggr.bwd"):
+        with span("aggr.bwd", f=g.shape[1]):
             return ctx.op.bwd(g.float().contiguous()).to(g.dtype), None
 
 
@@ -99,17 +114,51 @@ def params_from_jax(layers: Sequence[Dict], device: DeviceLike = None
              for k, v in p.items()} for p in layers]
 
 
+def transform_first(variant: str, d_in: int, d_out: int, h_grad: bool,
+                    w_grad: bool) -> bool:
+    """Whether a ``gcn`` or ``sage`` layer ``d_in -> d_out`` computes
+    ``A'(h W)`` rather than ``(A' h) W``: the order whose aggregations
+    gather fewer columns over the forward and the backward, among those
+    that hold no more for the backward than the variant's written order
+    (see the module). ``h_grad``, ``w_grad``: whether ``h`` and ``W`` need
+    a gradient. Ties keep the written order."""
+    written = variant == "gcn"
+    if written and w_grad:
+        return True
+    after = d_out * (2 if h_grad or w_grad else 1)
+    before = d_in * (2 if h_grad else 1)
+    if after == before:
+        return written
+    return after < before
+
+
+def _layer(p: Dict[str, torch.Tensor], aggr: Callable, h: torch.Tensor,
+           variant: str, transform: bool) -> torch.Tensor:
+    """One ``gcn`` or ``sage`` layer before its activation, aggregating
+    after the product with ``W`` where ``transform``, before it otherwise.
+    Its partial sums die on return: only the layer's output stays live
+    into the next layer."""
+    z = aggr(h @ p["w"]) if transform else aggr(h) @ p["w"]
+    if variant == "sage":
+        z = z + h @ p["w_self"]
+    return z + p["b"]
+
+
 def gcn_forward(params, aggr: Callable, x: torch.Tensor,
                 variant: str = "gcn",
                 act: Callable = torch.relu) -> torch.Tensor:
-    """aggr: callable computing A'.X (a GraphOp). Returns node logits."""
+    """aggr: callable computing A'.X (a GraphOp). Returns node logits. Each
+    ``gcn`` and ``sage`` layer places its aggregation by
+    :func:`transform_first` (see the module)."""
     h = x
     n = len(params)
+    grad = torch.is_grad_enabled()
     for i, p in enumerate(params):
-        if variant == "gcn":
-            h = aggr(h @ p["w"]) + p["b"]
-        elif variant == "sage":
-            h = aggr(h) @ p["w"] + h @ p["w_self"] + p["b"]
+        if variant in ("gcn", "sage"):
+            d_in, d_out = p["w"].shape
+            h = _layer(p, aggr, h, variant, transform_first(
+                variant, d_in, d_out, grad and h.requires_grad,
+                grad and p["w"].requires_grad))
         elif variant == "gin":
             z = (1.0 + p["eps"]) * h + aggr(h)
             h = act(z @ p["w"] + p["b"]) @ p["w2"]

@@ -73,7 +73,8 @@ from repro_torch.kernels.grouped_matmul import (_instance, grouped_matmul,
 from repro_torch.kernels.spmm_hbm import (spmm_block_slabs_hbm,
                                           spmm_block_slabs_hbm_plain)
 from repro_torch.kernels.ops import spmm_accel, spmm_pallas_hbm
-from repro_torch.models.gcn import GraphOp, gcn_loss, init_gcn
+from repro_torch.models.gcn import (GraphOp, gcn_loss, init_gcn,
+                                    transform_first)
 from repro_torch.models.moe import _route, block_dispatch, init_moe, moe_block
 from repro_torch.serve import GraphServeEngine
 from repro_torch.tuning import PlanTuner, default_candidates
@@ -568,7 +569,12 @@ def test_gcn_gradients_k1_against_the_twin(cuda, variant):
         torch.cuda.synchronize()
         launched = spmm_block_slabs.launches - before
         layers = len(dims) - 1
-        want = (2 * layers if variant == "gcn" else 2 * layers - 1)
+        # a backward aggregation for every layer but one that aggregates
+        # its raw features (``transform_first``; gin always does)
+        want = layers + sum(
+            i > 0 or (variant != "gin" and transform_first(
+                variant, a, b, i > 0, True))
+            for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])))
         assert launched == (want if backend == "accel" else 0)
         out[backend] = (float(loss.detach()),
                         [{k: t.grad for k, t in p.items()} for p in params])

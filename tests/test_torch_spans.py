@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from repro_torch import spans
-from repro_torch.core.graph import csr_transpose
+from repro_torch.core.graph import csr_transpose, gcn_normalize
+from repro_torch.data.graphs import make_power_law_graph
 from repro_torch.examples import train_gcn
-from repro_torch.models.gcn import GraphOp
+from repro_torch.models.gcn import GraphOp, init_gcn
 
 PLAN_STAGES = ("plan.hash", "plan.sort", "plan.partition", "plan.pack",
                "plan.copy")
@@ -160,9 +161,36 @@ def test_sgd_step_with_spans_on_is_bit_identical():
     for name in ("train.forward", "train.update", "train.readback"):
         assert {s["parent"] for s in by[name]} <= steps, name
     assert len(by["aggr.fwd"]) == len(by["aggr.bwd"]) == 9
-    # a step's spans carry no attributes: nothing reads them
-    assert all(s["attrs"] == {} for s in got["spans"])
+    # of a step's spans, only the aggregations carry an attribute: the width
+    assert [s["attrs"] for s in by["aggr.fwd"]] == [
+        {"f": 128}, {"f": 16}, {"f": 16}] * 3
+    assert [s["attrs"] for s in by["aggr.bwd"]] == [
+        {"f": 16}, {"f": 16}, {"f": 128}] * 3
+    assert all(s["attrs"] == {} for s in got["spans"]
+               if not s["name"].startswith("aggr."))
     assert all(s["cpu_ns"] is None for s in got["spans"])
+
+
+@pytest.mark.parametrize("variant,dims,fwd,bwd", [
+    ("sage", [602, 256, 41], [256, 41], [41, 256]),
+    ("gcn", [128, 256, 256, 40], [256, 256, 40], [40, 256, 256]),
+])
+def test_aggregation_spans_carry_the_width_each_layer_gathers(variant, dims,
+                                                               fwd, bwd):
+    """One SGD step of the benchmark cells' models on a small graph: the
+    aggregations' spans show where each layer placed its aggregation."""
+    g = gcn_normalize(make_power_law_graph(120, 600, seed=3))
+    aggr = GraphOp.build(g, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = init_gcn(gen, dims, variant, device="cpu")
+    x = torch.randn((g.n_rows, dims[0]), generator=gen)
+    y = torch.randint(0, dims[-1], (g.n_rows,), generator=gen)
+    spans.enable()
+    train_gcn.sgd_step(params, aggr, x, y, variant, 1e-2)
+    spans.disable()
+    by = _by_name(spans.drain())
+    assert [s["attrs"]["f"] for s in by["aggr.fwd"]] == fwd
+    assert [s["attrs"]["f"] for s in by["aggr.bwd"]] == bwd
 
 
 def test_graph_op_build_with_spans_on_same_slabs_and_six_stages():

@@ -128,13 +128,14 @@ def test_loss_and_gradients_match_value_and_grad(variant):
 
 
 class _Counting:
-    """An operator wrapper that counts its calls."""
+    """An operator wrapper that counts its calls and keeps their widths."""
 
     def __init__(self, op):
-        self.op, self.calls = op, 0
+        self.op, self.calls, self.widths = op, 0, []
 
     def __call__(self, x):
         self.calls += 1
+        self.widths.append(x.shape[1])
         return self.op(x)
 
 
@@ -145,18 +146,26 @@ def test_backward_goes_through_bwd_on_the_transpose(variant):
     fwd, bwd = _Counting(aggr.fwd), _Counting(aggr.bwd)
     counted = port_gcn.GraphOp(fwd=fwd, bwd=bwd)
     _port_loss_and_grads(params, counted, x, y, variant)
-    # sage and gin aggregate the input features first, which need no grad
+    # ``transform_first``: gcn aggregates after each product; sage
+    # aggregates the input features (10 -> 24) first, which need no grad,
+    # and aggregates after its product in 24 -> 6; gin aggregates each
+    # layer's input
     layers = len(DIMS) - 1
     assert fwd.calls == layers
-    assert bwd.calls == (layers if variant == "gcn" else layers - 1)
+    want = {"gcn": ([24, 6], [6, 24]), "sage": ([10, 6], [6]),
+            "gin": ([10, 24], [24])}[variant]
+    assert (fwd.widths, bwd.widths) == want
     assert bwd.op.n_rows == g.n_cols and bwd.op.plan.nnz == g.nnz
-    if variant == "gcn":
+    if variant != "gin":
         # the plain forward records no graph: with a zero backward operator
-        # no gradient reaches the first layer's weights
+        # no gradient reaches the weights of a layer that aggregates after
+        # its product
         zero = port_gcn.GraphOp(fwd=aggr.fwd, bwd=lambda h: torch.zeros(
             (g.n_cols, h.shape[1])))
         _, grads = _port_loss_and_grads(params, zero, x, y, variant)
-        assert float(grads[0]["w"].abs().max()) == 0.0
+        for i in ([0, 1] if variant == "gcn" else [1]):
+            assert float(grads[i]["w"].abs().max()) == 0.0, i
+        assert float(grads[1]["b"].abs().max()) > 0.0
     # a symmetric-A' impostor (backward through A' itself) is caught
     ref_aggr = ref_gcn.GraphOp.build(g, backend="blocked")
     _, want_grads = jax.value_and_grad(
@@ -165,6 +174,38 @@ def test_backward_goes_through_bwd_on_the_transpose(variant):
     impostor = port_gcn.GraphOp(fwd=aggr.fwd, bwd=aggr.fwd)
     _, bad = _port_loss_and_grads(params, impostor, x, y, variant)
     assert _grad_gap(want_grads, bad)[(0, "w")] > 1e3
+
+
+@pytest.mark.parametrize("transform", [True, False])
+@pytest.mark.parametrize("variant", ["gcn", "sage"])
+def test_either_placement_matches_the_reference(monkeypatch, variant,
+                                                transform):
+    """Every layer forced to one order, ``A'(h W)`` or ``(A' h) W``, against
+    the reference's own order: logits, loss and every gradient."""
+    g, params, x, y = _problem(variant)
+    monkeypatch.setattr(port_gcn, "transform_first", lambda *a: transform)
+    ref_aggr = ref_gcn.GraphOp.build(g, backend="pallas")
+    want_logits = np.asarray(ref_gcn.gcn_forward(params, ref_aggr,
+                                                 jnp.asarray(x), variant))
+    want_loss, want_grads = jax.value_and_grad(
+        lambda p: ref_gcn.gcn_loss(p, ref_aggr, jnp.asarray(x),
+                                   jnp.asarray(y), variant))(params)
+    aggr = port_gcn.GraphOp.build(_port_graph(g), device="cpu")
+    fwd, bwd = _Counting(aggr.fwd), _Counting(aggr.bwd)
+    counted = port_gcn.GraphOp(fwd=fwd, bwd=bwd)
+    with torch.no_grad():
+        logits = port_gcn.gcn_forward(port_gcn.params_from_jax(params, "cpu"),
+                                      counted, torch.from_numpy(x), variant)
+    assert np.abs(logits.numpy() - want_logits).max() <= (
+        2e-5 * np.abs(want_logits).max() + 1e-6)
+    fwd.widths = []
+    loss, grads = _port_loss_and_grads(params, counted, x, y, variant)
+    assert fwd.widths == (DIMS[1:] if transform else DIMS[:-1])
+    # transforming first, the first layer's ``x W`` needs A'^T for W
+    assert bwd.widths == ([6, 24] if transform else [24])
+    assert abs(loss - float(want_loss)) <= 2e-6 * abs(float(want_loss))
+    gaps = _grad_gap(want_grads, grads)
+    assert max(gaps.values()) <= 1.0, gaps
 
 
 def test_expanded_and_strided_grads_reach_bwd_contiguous():

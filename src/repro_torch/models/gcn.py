@@ -18,7 +18,12 @@ for the backward than its written order does: a ``gcn`` layer (written
 transform first) aggregates first only where ``W`` needs no gradient.
 Otherwise the narrower order wins, and a tie keeps the written order:
 ``gcn`` transforms first, ``sage`` aggregates first. GIN's aggregation sits
-inside a sum ahead of a nonlinearity, and keeps its place.
+inside a sum ahead of a nonlinearity, and keeps its place. Each ``gcn`` and
+``sage`` layer runs inside a span named by its order,
+``layer.transform_first`` or ``layer.aggr_first``, with ``d_in``, ``d_out``
+and ``held_bytes``: what the order keeps for the gradient of ``W`` beyond
+the layer's input (``A' h``, n x d_in, where it aggregates first; 0
+otherwise).
 
 Gradients: ``GraphOp`` is a ``torch.autograd.Function`` whose backward is
 a second ``AccelSpMM`` over A'^T (d/dX of A'.X is A'^T.X-bar), so training
@@ -156,9 +161,14 @@ def gcn_forward(params, aggr: Callable, x: torch.Tensor,
     for i, p in enumerate(params):
         if variant in ("gcn", "sage"):
             d_in, d_out = p["w"].shape
-            h = _layer(p, aggr, h, variant, transform_first(
+            transform = transform_first(
                 variant, d_in, d_out, grad and h.requires_grad,
-                grad and p["w"].requires_grad))
+                grad and p["w"].requires_grad)
+            held = 0 if transform else h.shape[0] * d_in * h.element_size()
+            with span("layer.transform_first" if transform
+                      else "layer.aggr_first",
+                      d_in=d_in, d_out=d_out, held_bytes=held):
+                h = _layer(p, aggr, h, variant, transform)
         elif variant == "gin":
             z = (1.0 + p["eps"]) * h + aggr(h)
             h = act(z @ p["w"] + p["b"]) @ p["w2"]

@@ -155,19 +155,26 @@ def test_sgd_step_with_spans_on_is_bit_identical():
             assert torch.equal(a[k], b[k]), k
     assert got_off["spans"] == []
     by = _by_name(got)
-    # a step: 5 spans of its own and 3 for each of its 6 aggregations
-    assert len(got["spans"]) == 3 * 23
+    # a step: 5 spans of its own, one for each of its 3 layers and 3 for
+    # each of its 6 aggregations
+    assert len(got["spans"]) == 3 * 26
     steps = {s["id"] for s in by["train.step"]}
     for name in ("train.forward", "train.update", "train.readback"):
         assert {s["parent"] for s in by[name]} <= steps, name
     assert len(by["aggr.fwd"]) == len(by["aggr.bwd"]) == 9
-    # of a step's spans, only the aggregations carry an attribute: the width
+    # of a step's spans, only the aggregations carry an attribute, the
+    # width, and the layers theirs: every trained gcn layer transforms first
     assert [s["attrs"] for s in by["aggr.fwd"]] == [
         {"f": 128}, {"f": 16}, {"f": 16}] * 3
     assert [s["attrs"] for s in by["aggr.bwd"]] == [
         {"f": 16}, {"f": 16}, {"f": 128}] * 3
+    assert "layer.aggr_first" not in by
+    assert [s["attrs"] for s in by["layer.transform_first"]] == [
+        {"d_in": 64, "d_out": 128, "held_bytes": 0},
+        {"d_in": 128, "d_out": 16, "held_bytes": 0},
+        {"d_in": 16, "d_out": 16, "held_bytes": 0}] * 3
     assert all(s["attrs"] == {} for s in got["spans"]
-               if not s["name"].startswith("aggr."))
+               if not s["name"].startswith(("aggr.", "layer.")))
     assert all(s["cpu_ns"] is None for s in got["spans"])
 
 

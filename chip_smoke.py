@@ -553,9 +553,10 @@ def edge_case_graph(C, seed):
 
 
 def k1_tiles():
-    """Every f_tile K1's wrapper can pick: its default and 32, 64, 128."""
+    """Every f_tile K1's wrapper can pick: each multiple of 32 up to
+    ``K1_F_TILE``."""
     from repro_torch.kernels.spmm_accel import K1_F_TILE
-    return sorted({32, 64, 128, K1_F_TILE})
+    return list(range(32, K1_F_TILE + 1, 32))
 
 
 def k1_c_launch(torch, instance, f_tile, colidx, values, rowloc, out_row,
@@ -1288,7 +1289,7 @@ def phase_timing(torch, graphs, engine, launches, float_err):
         log(f"sweep {label}: {ts[0]:.3f} / {ts[1]:.3f} ms, gather "
             f"{gather_rate(nnz, F, min(ts)):.2f} TB/s, "
             f"{bound_ms / min(ts) * 100:.2f}% of the bound{extra}")
-    log(f"K1 at f_tile={K1_F_TILE} (default) {ms['K1']:.3f} ms; "
+    log(f"K1 at f_tile={K1_F_TILE} (the default at F={F}) {ms['K1']:.3f} ms; "
         f"of which zero-filling the output alone takes {zero_ms:.3f} ms")
 
     # hub row alone: the split blocks of Reddit's largest row, all adding

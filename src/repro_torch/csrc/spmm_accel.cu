@@ -31,10 +31,15 @@
 //     adds it into out[out_row] with one fp32 RED. No [R, f_tile] tile and
 //     no per-row epilogue: shared memory holds the ring and the slots, so
 //     it does not cap the CTAs an SM holds.
-// The slice width (K1_F_TILE in kernels/spmm_accel.py) is the one the
-// sweep of chip_smoke.py found fastest. A narrower slice, which L2 could
-// hold whole, re-reads the slabs once per slice and moves each gathered
-// byte in more, smaller copies, and lost (PERF.md).
+// The slice width is picked from F by kernels/spmm_accel.py::k1_f_tile:
+// F in whole warps, at most K1_F_TILE (256). A narrow F thus launches no
+// warp without columns, and its ring, sized by f_tile, leaves room for
+// more CTAs an SM: K1's per-slot work is per warp, so the warps with
+// columns an SM holds set the time of a narrow call (PERF.md). Where F
+// exceeds the slice, 256 is the width the sweep of chip_smoke.py found
+// fastest: a narrower slice, which L2 could hold whole, re-reads the
+// slabs once per slice and moves each gathered byte in more, smaller
+// copies, and lost (PERF.md).
 
 #include "slab_common.cuh"
 

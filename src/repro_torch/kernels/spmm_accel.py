@@ -11,7 +11,8 @@ per (block, feature tile), feature-tile-major, so that the CTAs in flight
 share one column slice of X; each live slot's row segment goes through a
 shared-memory ring, each local row's run is summed in registers and added
 into the output with one fp32 RED, so split rows (degree > C) sum across
-CTAs. ``K1_F_TILE`` is the width of its column slice.
+CTAs. Its column slice is ``k1_f_tile(F)`` wide: F in whole warps, at
+most ``K1_F_TILE``, so that every warp a CTA launches has columns.
 
 K2 (``csrc/spmm_windowed.cu``) replaces ``_spmm_kernel_windowed``
 (``src/repro/kernels/spmm_accel.py:180``): the same product with X swept in
@@ -47,12 +48,12 @@ from .router import resident_window_rows
 
 __all__ = ["DEFAULT_F_TILE", "GATHER_INSTANCES", "K1_F_TILE",
            "MAX_SMEM_PER_CTA",
-           "gather_instance", "scatter_block_rows",
+           "gather_instance", "k1_f_tile", "scatter_block_rows",
            "spmm_block_slabs", "spmm_block_slabs_plain",
            "spmm_block_slabs_windowed", "spmm_block_slabs_windowed_plain"]
 
 DEFAULT_F_TILE = 128   # threads per CTA: the feature columns one CTA owns
-K1_F_TILE = 256        # K1's column slice of X, in features
+K1_F_TILE = 256        # K1's widest column slice of X, in features
 MAX_SMEM_PER_CTA = 232_448   # bytes of shared memory one CTA may use on Hopper
 _MAX_GRID = 2**31 - 1
 _MAX_THREADS = 1024          # threads per CTA
@@ -142,6 +143,15 @@ def check_slabs(colidx, values, rowloc, out_row, x, n_rows: int,
         raise ValueError(f"n_rows must be >= 0, got {n_rows}")
 
 
+def k1_f_tile(F: int) -> int:
+    """K1's column slice for a feature width F: F rounded up to whole warps
+    (one thread a column), at most ``K1_F_TILE``. A narrower CTA has no
+    warp without columns and a ring sized to its columns, so more CTAs fit
+    an SM; past ``K1_F_TILE`` a call takes several slices of
+    ``K1_F_TILE``."""
+    return min(K1_F_TILE, 32 * max(1, -(-F // 32)))
+
+
 def spmm_block_slabs(
     colidx: torch.Tensor,   # int32[B, C]
     values: torch.Tensor,   # f32[B, C]
@@ -150,7 +160,7 @@ def spmm_block_slabs(
     x: torch.Tensor,        # f32[N, F]
     n_rows: int,
     *,
-    f_tile: int = K1_F_TILE,
+    f_tile: int | None = None,
     grid_order: str = "block_major",
 ) -> torch.Tensor:
     """Block-slab SpMM over packed slabs; returns ``[n_rows, F]`` fp32 in
@@ -160,13 +170,18 @@ def spmm_block_slabs(
     ``gather_instance(x, f_tile)`` picks; CPU tensors take the plain
     version. There is no fallback between the two. ``f_tile`` is the number
     of feature columns per CTA: the width of the column slice of X that the
-    CTAs in flight share. ``grid_order`` is accepted for
+    CTAs in flight share; ``k1_f_tile(F)`` unless the caller gives one. The
+    tile changes no sum: each column of a row's run is summed by one thread
+    in slot order at any tile. ``grid_order`` is accepted for
     signature parity with the TPU kernel and has no effect: CTAs on a GPU
     run in no fixed order. The slabs are trusted to come from ``pack_slabs``
     or ``batch_graph_slabs``: every ``rowloc`` is below R, every ``colidx``
     below N, every ``out_row`` at most ``n_rows``.
     """
-    check_slabs(colidx, values, rowloc, out_row, x, n_rows, f_tile, grid_order)
+    check_slabs(colidx, values, rowloc, out_row, x, n_rows,
+                K1_F_TILE if f_tile is None else f_tile, grid_order)
+    if f_tile is None:
+        f_tile = k1_f_tile(x.shape[1])
     if x.device.type == "cpu":
         return spmm_block_slabs_plain(colidx, values, rowloc, out_row, x,
                                       n_rows)
@@ -180,6 +195,7 @@ def spmm_block_slabs(
 
 spmm_block_slabs.launches = 0   # K1 launches since the caller last reset it
 spmm_block_slabs.launches_by_instance = dict.fromkeys(GATHER_INSTANCES, 0)
+spmm_block_slabs.launches_by_f_tile = {}   # K1 launches by the tile taken
 
 
 def check_launch(label: str, smem: int, B: int, F: int,
@@ -209,10 +225,11 @@ def gather_instance(x: torch.Tensor, f_tile: int = DEFAULT_F_TILE) -> str:
 
 
 def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args,
-                     instance: str | None = None):
+                     instance: str | None = None, f_tile: int | None = None):
     """Call the library's launch function ``fn`` on x's current stream,
     raise if the launch was refused, and count it on ``wrapper`` (and on
-    ``wrapper.launches_by_instance[instance]`` when given)."""
+    ``wrapper.launches_by_instance[instance]`` when given, and on
+    ``wrapper.launches_by_f_tile[f_tile]`` where the wrapper keeps one)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
@@ -223,6 +240,9 @@ def launch_on_stream(label: str, lib: ctypes.CDLL, fn, wrapper, x, *args,
         wrapper.launches += 1
         if instance is not None:
             wrapper.launches_by_instance[instance] += 1
+        by_tile = getattr(wrapper, "launches_by_f_tile", None)
+        if by_tile is not None:
+            by_tile[f_tile] = by_tile.get(f_tile, 0) + 1
 
 
 def declare_common(lib: ctypes.CDLL) -> None:
@@ -276,7 +296,7 @@ def launch_slot_order(label: str, source: str, prefix: str, wrapper, colidx,
         colidx.data_ptr(), values.data_ptr(), rowloc.data_ptr(),
         out_row.data_ptr(), x.data_ptr(), out.data_ptr(),
         B, C, R, F, n_rows, f_tile, int(instance == "bulk"),
-        instance=instance)
+        instance=instance, f_tile=f_tile)
     return out
 
 

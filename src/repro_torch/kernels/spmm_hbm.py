@@ -20,7 +20,7 @@ large serving graphs.
 
 K3 computes the same function as K1 and launches the same kernel
 (``launch_slot_order``; K3 at ``DEFAULT_F_TILE`` columns per CTA, K1 at
-``K1_F_TILE``), so its plain version is K1's.
+``k1_f_tile(F)``), so its plain version is K1's.
 """
 from __future__ import annotations
 

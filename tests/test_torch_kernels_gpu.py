@@ -14,7 +14,9 @@ row, plus ``num_windows`` for K2. K2's window order is pinned by blocks
 whose rows come out exactly 1 only if each row adds its window partials in
 window order (slot order gives 0), held bit for bit against the plain
 version on the CPU (``index_add_`` on the card has no fixed order). K1
-runs at every f_tile its wrapper can pick; each K1 case and each K1/K2/K3
+runs at every f_tile its wrapper can pick (each multiple of 32 up to
+``K1_F_TILE``), and at the tile ``k1_f_tile`` picks equals itself at
+``K1_F_TILE`` bit for bit; each K1 case and each K1/K2/K3
 gather-instance case asserts which instance ran. K4's sums of K products are each within
 ``(K + 1) * 2**-24 * (|x| @ |w|)`` of the exact product (fmaf in order in
 the simt instance, the tensor cores' order in the wgmma instance, any
@@ -63,7 +65,7 @@ from repro_torch.core.plan_cache import PartitionConfig, build_partition_plan
 from repro_torch.core.plan_repair import EdgeDelta, apply_and_repair
 from repro_torch.data.graphs import make_power_law_graph
 from repro_torch.kernels.spmm_accel import (K1_F_TILE, gather_instance,
-                                            spmm_block_slabs,
+                                            k1_f_tile, spmm_block_slabs,
                                             spmm_block_slabs_plain,
                                             spmm_block_slabs_windowed,
                                             spmm_block_slabs_windowed_plain)
@@ -107,7 +109,7 @@ def _args(slabs):
 
 
 # every f_tile K1's wrapper can pick
-K1_TILES = sorted({32, 64, 128, K1_F_TILE})
+K1_TILES = list(range(32, K1_F_TILE + 1, 32))
 
 
 def _view(n, F, offset, cuda):
@@ -118,15 +120,20 @@ def _view(n, F, offset, cuda):
 
 def _k1_on(args, x, n_rows, f_tile):
     """K1's output, asserting that it launched once, in the instance
-    ``gather_instance`` picks for x and f_tile."""
-    instance = gather_instance(x, f_tile)
+    ``gather_instance`` picks for x and the tile, at the caller's f_tile
+    or, for None, at ``k1_f_tile(F)``."""
+    tile = k1_f_tile(x.shape[1]) if f_tile is None else f_tile
+    instance = gather_instance(x, tile)
     before = spmm_block_slabs.launches
     by_instance = dict(spmm_block_slabs.launches_by_instance)
+    by_tile = dict(spmm_block_slabs.launches_by_f_tile)
     got = spmm_block_slabs(*args, x, n_rows, f_tile=f_tile)
     torch.cuda.synchronize()
     by_instance[instance] += 1
+    by_tile[tile] = by_tile.get(tile, 0) + 1
     assert spmm_block_slabs.launches == before + 1
     assert spmm_block_slabs.launches_by_instance == by_instance
+    assert spmm_block_slabs.launches_by_f_tile == by_tile
     return got
 
 
@@ -150,6 +157,27 @@ def test_k1_equals_plain_on_integer_graphs(cuda, mode, mbw, mwn, F, f_tile,
     got = _k1_on(_args(plan.slabs), x, g.n_rows, f_tile)
     assert torch.equal(got, spmm_block_slabs_plain(*_args(plan.slabs), x,
                                                    g.n_rows))
+
+
+@pytest.mark.parametrize("mode,mbw,mwn", [("tpu", 64, 4), ("paper", 12, 32)])
+@pytest.mark.parametrize("F", [1, 33, 40, 41, 47, 65, 100, 129, 256])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_rule_tile_equals_widest_tile_bit_for_bit(cuda, mode, mbw, mwn, F,
+                                                     offset):
+    """K1 at the tile ``k1_f_tile(F)`` picks equals K1 at f_tile 256 bit
+    for bit on integer graphs with split rows, in both gather instances
+    (offset 1, or F % 4 != 0: cp_async), and its launch is counted at the
+    picked tile."""
+    cfg = PartitionConfig(mode, mbw, mwn)
+    g = _edge_graph(cfg.deg_bound, seed=F + offset)
+    plan = build_partition_plan(g, cfg, device=cuda)
+    assert plan.partition.is_split.any()
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    x = _view(g.n_cols, F, offset, cuda)
+    x.copy_(torch.randint(-4, 5, (g.n_cols, F), generator=gen, device=cuda))
+    got = _k1_on(_args(plan.slabs), x, g.n_rows, None)
+    want = _k1_on(_args(plan.slabs), x, g.n_rows, K1_F_TILE)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("f_tile", K1_TILES)

@@ -170,26 +170,61 @@ def test_wrapper_validates_and_uses_plain_version_on_cpu():
                                 grid_order="ft_major"), out, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("f_tile", sorted({32, 64, 128, port_k.K1_F_TILE}))
+# F -> the f_tile K1 takes when the caller gives none: F in whole warps,
+# at most K1_F_TILE
+K1_RULE = {1: 32, 32: 32, 33: 64, 40: 64, 41: 64, 47: 64, 64: 64, 65: 96,
+           100: 128, 129: 160, 255: 256, 256: 256, 257: 256, 602: 256,
+           2048: 256}
+
+
+@pytest.mark.parametrize("F,f_tile", sorted(K1_RULE.items()))
+def test_k1_f_tile_rule(F, f_tile):
+    assert port_k.K1_F_TILE == 256
+    assert port_k.k1_f_tile(F) == f_tile
+
+
+def test_explicit_f_tile_is_kept():
+    """A caller's f_tile is validated as given, never replaced by the
+    rule: 100 is refused at F = 100, where the rule would take 128; 32 and
+    1024 are accepted at F = 100, and the result is the same."""
+    g = _int_graph(make_powerlaw_csr(n=60, seed=6), seed=6)
+    gs, s = _slabs(g, "tpu", 16, 8)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        -3, 4, (g.n_cols, 100)).astype(np.float32))
+    with pytest.raises(ValueError, match="f_tile"):
+        port_k.spmm_block_slabs(*_t(s), x, gs.n_rows, f_tile=100)
+    want = port_k.spmm_block_slabs(*_t(s), x, gs.n_rows)
+    for f_tile in (32, 1024):
+        np.testing.assert_array_equal(
+            port_k.spmm_block_slabs(*_t(s), x, gs.n_rows,
+                                    f_tile=f_tile).numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("f_tile",
+                         sorted({32, 64, 128, port_k.K1_F_TILE}) + [None])
 @pytest.mark.parametrize("F,offset", [(8, 0), (8, 1), (3, 0)])
 def test_cpu_tensors_count_no_launch_in_either_counter(f_tile, F, offset):
     """On CPU tensors K1's wrapper takes the plain version at every f_tile
-    it can pick, whichever gather instance the layout would take on the
-    card (offset 1: x 4 bytes off a 16-byte boundary), and counts nothing:
-    neither ``launches`` nor ``launches_by_instance``."""
+    it can pick (None: the rule's), whichever gather instance the layout
+    would take on the card (offset 1: x 4 bytes off a 16-byte boundary),
+    and counts nothing: neither ``launches`` nor ``launches_by_instance``
+    nor ``launches_by_f_tile``."""
     g = _int_graph(make_powerlaw_csr(n=70, seed=5), seed=5)
     gs, s = _slabs(g, "tpu", 16, 8)
     base = torch.from_numpy(np.random.default_rng(F).integers(
         -3, 4, g.n_cols * F + 4).astype(np.float32))
     shift = (-base.data_ptr() // 4) % 4 + offset      # floats to the boundary
     x = base[shift:shift + g.n_cols * F].view(g.n_cols, F)
-    assert port_k.gather_instance(x, f_tile) == (
+    tile = port_k.k1_f_tile(F) if f_tile is None else f_tile
+    assert port_k.gather_instance(x, tile) == (
         "bulk" if F % 4 == 0 and offset == 0 else "cp_async")
     before = port_k.spmm_block_slabs.launches
     by_instance = dict(port_k.spmm_block_slabs.launches_by_instance)
+    by_tile = dict(port_k.spmm_block_slabs.launches_by_f_tile)
     got = port_k.spmm_block_slabs(*_t(s), x, gs.n_rows, f_tile=f_tile)
     assert port_k.spmm_block_slabs.launches == before
     assert port_k.spmm_block_slabs.launches_by_instance == by_instance
+    assert port_k.spmm_block_slabs.launches_by_f_tile == by_tile
     np.testing.assert_array_equal(
         got.numpy(), port_k.spmm_block_slabs_plain(*_t(s), x,
                                                    gs.n_rows).numpy())

@@ -97,27 +97,15 @@ def counting_sort_by_degree(degrees: np.ndarray) -> np.ndarray:
 
 
 def _rank_within_class(keys: np.ndarray) -> np.ndarray:
-    """rank_within_class[i] = number of j<i with keys[j]==keys[i]. O(n)."""
-    # argsort(kind="stable") on small ints is counting-based in numpy; we keep
-    # a pure O(n) fallback for clarity and determinism.
+    """rank_within_class[i] = number of j<i with keys[j]==keys[i]."""
     n = len(keys)
-    seen = {}
-    out = np.empty(n, dtype=np.int64)
-    # This python loop is O(n) with tiny constants; used only at preprocessing
-    # time. For large graphs we switch to the vectorized variant below.
-    if n > 200_000:
-        order = np.argsort(keys, kind="stable")
-        ranks = np.empty(n, dtype=np.int64)
-        sorted_keys = keys[order]
-        grp_start = np.concatenate(([0], np.flatnonzero(np.diff(sorted_keys)) + 1))
-        idx_in_grp = np.arange(n) - np.repeat(grp_start, np.diff(np.concatenate((grp_start, [n]))))
-        ranks[order] = idx_in_grp
-        return ranks
-    for i, k in enumerate(keys):
-        c = seen.get(int(k), 0)
-        out[i] = c
-        seen[int(k)] = c + 1
-    return out
+    order = np.argsort(keys, kind="stable")
+    ranks = np.empty(n, dtype=np.int64)
+    sorted_keys = keys[order]
+    grp_start = np.concatenate(([0], np.flatnonzero(np.diff(sorted_keys)) + 1))
+    idx_in_grp = np.arange(n) - np.repeat(grp_start, np.diff(np.concatenate((grp_start, [n]))))
+    ranks[order] = idx_in_grp
+    return ranks
 
 
 def degree_sort_csr(g: CSRGraph) -> CSRGraph:

@@ -29,7 +29,7 @@ import json
 import os
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, ClassVar, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -106,6 +106,13 @@ def graph_content_hash(g: CSRGraph) -> str:
     return h.hexdigest()
 
 
+# Every tensor a staged plan holds, in the order it is copied to the
+# device, under the key its spill stores it by: the slab arrays
+# (``slab_<k>`` is ``slabs[<k>]``), then the plan's own tensor fields.
+_SLAB_KEYS = ("colidx", "values", "rowloc", "out_row")
+_OWN_TENSORS = ("inv_perm", "coo_row", "coo_col", "coo_val")
+
+
 @dataclasses.dataclass
 class PartitionPlan:
     """A finished, device-staged partition of one graph under one config.
@@ -114,7 +121,15 @@ class PartitionPlan:
     ``slabs`` holds the kernel inputs (colidx/values/rowloc/out_row as
     tensors on ``device`` plus python ints R, C); ``inv_perm`` undoes the
     degree sort so callers always see the ORIGINAL row order.
+
+    The plan owns its staged format: :attr:`TENSORS` names every tensor it
+    holds (:attr:`TENSOR_FIELDS`, the fields holding them); :meth:`stage`
+    builds, :meth:`to` moves and :meth:`to_original_order` un-permutes.
     """
+
+    TENSORS: ClassVar[Tuple[str, ...]] = (
+        tuple(f"slab_{k}" for k in _SLAB_KEYS) + _OWN_TENSORS)
+    TENSOR_FIELDS: ClassVar[Tuple[str, ...]] = ("slabs",) + _OWN_TENSORS
 
     key: Tuple[str, PartitionConfig]
     n_rows: int
@@ -136,6 +151,42 @@ class PartitionPlan:
     # and reloads with the plan so tuned configs survive eviction.
     tuned: Optional[Dict] = None
 
+    @classmethod
+    def stage(cls, key: Tuple[str, PartitionConfig], g: CSRGraph,
+              slabs: Dict, inv_perm, partition: BlockPartition,
+              device: DeviceLike, version: int = 0) -> "PartitionPlan":
+        """The plan of ``g`` (rows in original order) on ``device``, from
+        ``slabs`` (with ``R``, ``C``), ``inv_perm`` and the COO triple made
+        here from ``g``, copied in :attr:`TENSORS` order."""
+        arrays = {f"slab_{k}": slabs[k] for k in _SLAB_KEYS}
+        # COO is cheap to keep and doubles as the baseline path
+        arrays.update(
+            inv_perm=inv_perm,
+            coo_row=np.repeat(np.arange(g.n_rows, dtype=np.int64),
+                              np.diff(g.rowptr)),
+            coo_col=np.asarray(g.colidx, dtype=np.int64),
+            coo_val=np.asarray(g.values, dtype=np.float32))
+        return cls(**_staged_fields(arrays, slabs["R"], slabs["C"], device),
+                   key=key, n_rows=g.n_rows, n_cols=g.n_cols, nnz=g.nnz,
+                   partition=partition, version=version)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the plan, keyed and ordered as :attr:`TENSORS`."""
+        out = {f"slab_{k}": self.slabs[k] for k in _SLAB_KEYS}
+        out.update((k, getattr(self, k)) for k in _OWN_TENSORS)
+        return out
+
+    def to(self, device: DeviceLike) -> "PartitionPlan":
+        """A copy of the plan with its tensors on ``device``, copied in
+        :attr:`TENSORS` order (a tensor already there is shared, not
+        copied); every other field is shared. The caller synchronises."""
+        return dataclasses.replace(self, **_staged_fields(
+            self.tensors(), self.slabs["R"], self.slabs["C"], device))
+
+    def to_original_order(self, out: torch.Tensor) -> torch.Tensor:
+        """``out``'s rows, given in degree-sorted order, in original order."""
+        return out[self.inv_perm]
+
     @property
     def graph_hash(self) -> str:
         return self.key[0]
@@ -154,16 +205,22 @@ class PartitionPlan:
 
     def device_bytes(self) -> int:
         """Device footprint of the staged plan (for cache stats)."""
-        tensors = [v for v in self.slabs.values()
-                   if isinstance(v, torch.Tensor)]
-        tensors += [self.inv_perm, self.coo_row, self.coo_col, self.coo_val]
-        return sum(t.numel() * t.element_size() for t in tensors)
+        return sum(t.numel() * t.element_size()
+                   for t in self.tensors().values())
 
 
-def _stage(arrays: Dict[str, np.ndarray], device: torch.device
-           ) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in arrays.items()}
+def _staged_fields(arrays, R: int, C: int, device: DeviceLike) -> Dict:
+    """The ``TENSOR_FIELDS`` of a plan holding ``arrays`` (keyed as
+    ``TENSORS``: host arrays, or tensors moved with ``.to``) on
+    ``device``, copied in ``TENSORS`` order."""
+    t = {}
+    for k in PartitionPlan.TENSORS:
+        a = arrays[k]
+        t[k] = (a if isinstance(a, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(a))).to(device)
+    slabs = {k: t[f"slab_{k}"] for k in _SLAB_KEYS}
+    slabs["R"], slabs["C"] = R, C
+    return {"slabs": slabs, **{k: t[k] for k in _OWN_TENSORS}}
 
 
 def build_partition_plan(g: CSRGraph, cfg: PartitionConfig,
@@ -188,35 +245,21 @@ def build_partition_plan(g: CSRGraph, cfg: PartitionConfig,
         slabs_np = pack_slabs(gs, bp)
         sp.set(slots=bp.num_blocks * int(slabs_np["C"]))
     with span("plan.copy", cpu_clock=True) as sp:
-        slabs = _stage({k: v for k, v in slabs_np.items()
-                        if isinstance(v, np.ndarray)}, dev)
-        slabs["R"], slabs["C"] = slabs_np["R"], slabs_np["C"]
-
         inv_perm = np.empty(gs.n_rows, dtype=np.int64)
         inv_perm[gs.perm] = np.arange(gs.n_rows)
-
-        # COO is cheap to keep and doubles as the baseline path
-        row_of = np.repeat(np.arange(g.n_rows, dtype=np.int64),
-                           np.diff(g.rowptr))
-        staged = _stage({"inv_perm": inv_perm, "coo_row": row_of,
-                         "coo_col": np.asarray(g.colidx, dtype=np.int64),
-                         "coo_val": np.asarray(g.values, dtype=np.float32)},
-                        dev)
+        plan = PartitionPlan.stage((graph_hash, cfg), g, slabs_np, inv_perm,
+                                   bp, dev)
         if enabled():
-            sp.set(bytes=sum(t.numel() * t.element_size() for t in
-                             [*staged.values(), *slabs.values()]
-                             if isinstance(t, torch.Tensor)))
+            sp.set(bytes=plan.device_bytes())
             # a copy from pageable memory may return before it lands
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
     if not graph_hash:
+        # its own stage after the copy; the key is whole before return
         with span("plan.hash", cpu_clock=True,
                   bytes=8 * (g.n_rows + 1) + 12 * g.nnz + 24):
-            graph_hash = graph_content_hash(g)
-    return PartitionPlan(
-        key=(graph_hash, cfg),
-        n_rows=g.n_rows, n_cols=g.n_cols, nnz=g.nnz,
-        slabs=slabs, partition=bp, **staged)
+            plan.key = (graph_content_hash(g), cfg)
+    return plan
 
 
 def _config_tag(cfg: PartitionConfig) -> str:
@@ -495,10 +538,8 @@ class PlanCache:
             "bp_n_rows": np.int64(bp.n_rows),
             "bp_nnz": np.int64(bp.nnz),
         }
-        for k in ("colidx", "values", "rowloc", "out_row"):
-            payload[f"slab_{k}"] = plan.slabs[k].cpu().numpy()
-        for k in ("inv_perm", "coo_row", "coo_col", "coo_val"):
-            payload[k] = getattr(plan, k).cpu().numpy()
+        for k, t in plan.tensors().items():
+            payload[k] = t.cpu().numpy()
         if plan.tuned is not None:
             payload["tuned_json"] = np.array(json.dumps(plan.tuned))
         tmp = path + ".tmp"
@@ -526,10 +567,6 @@ class PlanCache:
         _, cfg = key
         try:
             with np.load(path) as z:
-                slabs = _stage({k: z[f"slab_{k}"] for k in
-                                ("colidx", "values", "rowloc", "out_row")},
-                               self.device)
-                slabs["R"], slabs["C"] = int(z["slab_R"]), int(z["slab_C"])
                 bp = BlockPartition(
                     meta=z["bp_meta"],
                     n_rows_blk=z["bp_n_rows_blk"],
@@ -542,18 +579,17 @@ class PlanCache:
                     n_rows=int(z["bp_n_rows"]),
                     nnz=int(z["bp_nnz"]),
                 )
-                staged = _stage({k: z[k] for k in ("inv_perm", "coo_row",
-                                                   "coo_col", "coo_val")},
-                                self.device)
                 tuned = (json.loads(str(z["tuned_json"]))
                          if "tuned_json" in z else None)
                 return PartitionPlan(
+                    **_staged_fields(z, int(z["slab_R"]), int(z["slab_C"]),
+                                     self.device),
                     key=key,
                     n_rows=int(z["n_rows"]), n_cols=int(z["n_cols"]),
-                    nnz=int(z["nnz"]), slabs=slabs, partition=bp,
+                    nnz=int(z["nnz"]), partition=bp,
                     # pre-versioning spills reload as version 0
                     version=int(z["version"]) if "version" in z else 0,
-                    tuned=tuned, **staged)
+                    tuned=tuned)
         except Exception:       # corrupt/partial/alien spill (BadZipFile,
             return None         # KeyError, OSError, ...): rebuild instead
 

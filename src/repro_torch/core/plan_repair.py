@@ -73,7 +73,7 @@ import torch
 
 from .graph import CSRGraph, csr_apply_edge_delta, _concat_ranges
 from .partition import BlockPartition, block_level_partition, pack_slabs
-from .plan_cache import (PartitionPlan, _stage, build_partition_plan,
+from .plan_cache import (PartitionPlan, build_partition_plan,
                          graph_content_hash)
 
 __all__ = ["EdgeDelta", "PlanVersion", "repair_plan", "apply_and_repair",
@@ -333,15 +333,12 @@ def repair_plan(plan: PartitionPlan, g_old: CSRGraph, g_new: CSRGraph,
     # every kernel adds through out_row. The big [B, C] slabs are
     # concatenated ON DEVICE; only out_row ([B, R], an order of magnitude
     # smaller) ever visits the host, for the mask.
-    C = int(plan.slabs["C"])
     dev = plan.device
-    sub = _stage({k: sub_slabs[k] for k in ("colidx", "values", "rowloc")},
-                 dev)
-    slabs = {k: torch.cat([plan.slabs[k], sub[k]])
+    slabs = {k: torch.cat([plan.slabs[k],
+                           torch.as_tensor(sub_slabs[k], device=dev)])
              for k in ("colidx", "values", "rowloc")}
-    slabs.update(_stage(
-        {"out_row": np.concatenate([patched_out, sub_out_row])}, dev))
-    slabs["R"], slabs["C"] = R_old, C
+    slabs["out_row"] = np.concatenate([patched_out, sub_out_row])
+    slabs["R"], slabs["C"] = R_old, int(plan.slabs["C"])
 
     new_bp = BlockPartition(
         meta=np.concatenate([bp.meta, sub_meta]),
@@ -350,20 +347,10 @@ def repair_plan(plan: PartitionPlan, g_old: CSRGraph, g_new: CSRGraph,
         is_split=np.concatenate([bp.is_split, sub_bp.is_split]),
         patterns=pats, n_rows=n, nnz=g_new.nnz)
 
-    row_of = np.repeat(np.arange(n, dtype=np.int64), deg_new)
-    coo = _stage({"coo_row": row_of,
-                  "coo_col": np.asarray(g_new.colidx, dtype=np.int64),
-                  "coo_val": np.asarray(g_new.values, dtype=np.float32)},
-                 dev)
-    new_plan = PartitionPlan(
-        key=(graph_hash, plan.config),
-        n_rows=n, n_cols=g_new.n_cols, nnz=g_new.nnz,
-        slabs=slabs,
-        inv_perm=plan.inv_perm,  # positions are stable: shared by reference
-        partition=new_bp,
-        version=plan.version + 1,
-        **coo,
-    )
+    # positions are stable: inv_perm is shared by reference
+    new_plan = PartitionPlan.stage(
+        (graph_hash, plan.config), g_new, slabs, plan.inv_perm, new_bp, dev,
+        version=plan.version + 1)
     return PlanVersion(
         plan=new_plan, version=new_plan.version, repaired=True,
         reason=f"masked {len(touched)} row(s) across {masked_blocks} "

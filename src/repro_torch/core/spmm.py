@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .graph import CSRGraph
-from .partition import BlockPartition, warp_level_partition
+from .partition import warp_level_partition
 from .plan_cache import (
     DeviceLike,
     PartitionConfig,
@@ -49,51 +49,57 @@ _KERNEL_OPS = {"accel": kops.spmm_accel, "auto": kops.spmm_auto,
                "hbm": kops.spmm_pallas_hbm}
 
 
+def _plan_field(name: str) -> property:
+    return property(lambda self: getattr(self.plan, name), doc=f"plan.{name}")
+
+
 @dataclasses.dataclass
 class AccelSpMM:
-    """Preprocessed sparse operator. Build via :func:`make_accel_spmm`."""
+    """Preprocessed sparse operator over one staged plan. Build via
+    :func:`make_accel_spmm`."""
 
-    n_rows: int
-    n_cols: int
-    nnz: int
+    plan: PartitionPlan          # staged preprocessing this op wraps
     backend: Backend
-    # degree-sorted slabs (tensors on the plan's device)
-    slabs: dict
-    inv_perm: torch.Tensor       # original row -> sorted position
     # baselines
-    coo_row: Optional[torch.Tensor] = None
-    coo_col: Optional[torch.Tensor] = None
-    coo_val: Optional[torch.Tensor] = None
     warp_slabs: Optional[dict] = None
     dense: Optional[torch.Tensor] = None
-    partition: Optional[BlockPartition] = None
-    plan: Optional[PartitionPlan] = None  # staged preprocessing this op wraps
+
+    n_rows = _plan_field("n_rows")
+    n_cols = _plan_field("n_cols")
+    nnz = _plan_field("nnz")
+    slabs = _plan_field("slabs")          # degree-sorted
+    inv_perm = _plan_field("inv_perm")
+    partition = _plan_field("partition")
+    coo_row = _plan_field("coo_row")
+    coo_col = _plan_field("coo_col")
+    coo_val = _plan_field("coo_val")
 
     def __call__(self, x: torch.Tensor,
                  backend: Optional[Backend] = None) -> torch.Tensor:
         be = backend or self.backend
+        plan = self.plan
         if be in _KERNEL_OPS or be == "blocked":
             with span("spmm.kernel"):
                 if be == "blocked":
                     out_sorted = kops.spmm_blocked(
-                        self.slabs["colidx"], self.slabs["values"],
-                        self.slabs["rowloc"], self.slabs["out_row"], x,
-                        self.n_rows)
+                        plan.slabs["colidx"], plan.slabs["values"],
+                        plan.slabs["rowloc"], plan.slabs["out_row"], x,
+                        plan.n_rows)
                 else:
-                    out_sorted = _KERNEL_OPS[be](self.slabs, x, self.n_rows)
+                    out_sorted = _KERNEL_OPS[be](plan.slabs, x, plan.n_rows)
             with span("spmm.unpermute"):
-                return out_sorted[self.inv_perm]
+                return plan.to_original_order(out_sorted)
         if be == "segment":
-            contrib = self.coo_val[:, None] * x[self.coo_col].float()
-            out = torch.zeros((self.n_rows, x.shape[1]), dtype=torch.float32,
+            contrib = plan.coo_val[:, None] * x[plan.coo_col].float()
+            out = torch.zeros((plan.n_rows, x.shape[1]), dtype=torch.float32,
                               device=x.device)
-            return out.index_add_(0, self.coo_row, contrib)
+            return out.index_add_(0, plan.coo_row, contrib)
         if be == "warp":
             ws = self.warp_slabs
             # the warp partition is built un-sorted: original order
             return kops.spmm_blocked(ws["colidx"], ws["values"],
                                      ws["rowloc"], ws["out_row"], x,
-                                     self.n_rows)
+                                     plan.n_rows)
         if be == "dense":
             return self.dense @ x.float()
         raise ValueError(f"unknown backend {be!r} (accel|auto|pallas|"
@@ -103,12 +109,7 @@ class AccelSpMM:
 def accel_spmm_from_plan(plan: PartitionPlan,
                          backend: Backend = "accel") -> AccelSpMM:
     """Wrap a finished (possibly cached) partition plan as a callable operator."""
-    return AccelSpMM(
-        n_rows=plan.n_rows, n_cols=plan.n_cols, nnz=plan.nnz, backend=backend,
-        slabs=plan.slabs, inv_perm=plan.inv_perm, partition=plan.partition,
-        coo_row=plan.coo_row, coo_col=plan.coo_col, coo_val=plan.coo_val,
-        plan=plan,
-    )
+    return AccelSpMM(plan=plan, backend=backend)
 
 
 def make_accel_spmm(

@@ -30,7 +30,6 @@ synchronized), because slots read plans on CUDA streams of their own.
 from __future__ import annotations
 
 import bisect
-import dataclasses
 import hashlib
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
@@ -46,24 +45,12 @@ from ..launch.mesh import graph_mesh, resolve_slots
 
 __all__ = ["ConsistentHashRing", "FleetPlanCache"]
 
-# a plan's tensors outside its slab dict
-_PLAN_TENSORS = ("inv_perm", "coo_row", "coo_col", "coo_val")
-
 
 def _settle(device: torch.device) -> None:
     """Wait for the caller's current stream on ``device``: what it staged
     is then readable from any other stream."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
-
-
-def _moved(plan: PartitionPlan, device: torch.device) -> Dict:
-    """The plan's tensor fields moved to ``device`` (``.to`` hands back the
-    same tensor where it already lies there)."""
-    fields = {k: getattr(plan, k).to(device) for k in _PLAN_TENSORS}
-    fields["slabs"] = {k: (v.to(device) if isinstance(v, torch.Tensor)
-                           else v) for k, v in plan.slabs.items()}
-    return fields
 
 
 class ConsistentHashRing:
@@ -226,14 +213,13 @@ class FleetPlanCache:
                     device_index: int) -> bool:
         """Put an independent ``PartitionPlan`` for ``key`` on another slot.
 
-        The copy is a ``dataclasses.replace`` clone whose tensors are the
-        primary's moved to the target slot's device: on another card a
-        copy there; on a slot that shares the primary's card, the primary's
-        own tensors (``.to`` returns them), so the replica aliases them and
-        costs no device memory. Plans are never written in place, so the
-        alias is safe; the separate object keeps the shards' bookkeeping
-        apart. Idempotent; returns False when the primary has no resident
-        plan to copy.
+        The copy is the primary's ``PartitionPlan.to`` the target slot's
+        device: on another card a copy there; on a slot that shares the
+        primary's card, the primary's own tensors (``.to`` returns them),
+        so the replica aliases them and costs no device memory. Plans are
+        never written in place, so the alias is safe; the separate object
+        keeps the shards' bookkeeping apart. Idempotent; returns False when
+        the primary has no resident plan to copy.
         """
         if not 0 <= device_index < len(self.devices):
             raise ValueError(
@@ -249,7 +235,7 @@ class FleetPlanCache:
         if plan is None:
             return False
         device = self.devices[device_index]
-        copy = dataclasses.replace(plan, **_moved(plan, device))
+        copy = plan.to(device)
         _settle(device)
         self.shards[device_index].put(copy)
         with self._lock:
@@ -415,8 +401,9 @@ class FleetPlanCache:
         """
         if plan.device == device:
             return plan
-        for k, v in _moved(plan, device).items():
-            setattr(plan, k, v)
+        staged = plan.to(device)
+        for name in PartitionPlan.TENSOR_FIELDS:
+            setattr(plan, name, getattr(staged, name))
         _settle(device)
         return plan
 

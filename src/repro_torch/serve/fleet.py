@@ -510,7 +510,7 @@ class FleetGraphEngine(GraphServeEngine):
                 x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
                 outs = spmm_batched([plan.slabs], [x], [plan.n_rows],
                                     backend=self.backend)
-                out = outs[0][plan.inv_perm]
+                out = plan.to_original_order(outs[0])
                 self._hand_over(out)
             answers, _ = self._slice_answers(pending, widths, out,
                                              time.perf_counter())

@@ -702,7 +702,7 @@ class GraphServeEngine:
         n_req = n_rows = n_vals = 0
         wait_s = 0.0
         for (_gid, grp, plan), out, widths in zip(batch, outs, col_splits):
-            out = out[plan.inv_perm]          # back to original row order
+            out = plan.to_original_order(out)
             if foreign is not None:
                 out.record_stream(foreign)
             sliced, wait = self._slice_answers(grp, widths, out, now)

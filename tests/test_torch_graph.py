@@ -41,8 +41,10 @@ def test_degree_sort_and_normalize_identical(seed):
 
 
 def test_counting_sort_large_branch_identical():
-    """Above 200k rows the rank-within-class helper takes its vectorised
-    branch; both branches must agree with the reference."""
+    """Above 200k rows the reference's rank-within-class helper takes its
+    vectorised branch, below it a loop; the port's one stable-argsort path
+    must agree with it at both sizes (the small size:
+    ``test_degree_sort_and_normalize_identical``)."""
     deg = np.random.default_rng(3).integers(0, 50, 200_500)
     np.testing.assert_array_equal(port_graph.counting_sort_by_degree(deg),
                                   ref_graph.counting_sort_by_degree(deg))

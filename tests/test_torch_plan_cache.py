@@ -104,6 +104,7 @@ def test_lru_eviction_spill_and_reload(tmp_path):
     cfg = port_pc.PartitionConfig()
     gs = [_graphs(s)[1] for s in (5, 6, 7)]
     first = cache.get_or_build(gs[0], cfg)
+    first.tuned = {"backend": "accel", "label": "t"}
     cache.get_or_build(gs[1], cfg)
     cache.get_or_build(gs[2], cfg)          # evicts gs[0] -> spilled
     assert cache.evictions == 1 and cache.spills == 1
@@ -115,6 +116,42 @@ def test_lru_eviction_spill_and_reload(tmp_path):
     for k in ("inv_perm", "coo_row", "coo_col", "coo_val"):
         assert torch.equal(getattr(again, k), getattr(first, k))
     np.testing.assert_array_equal(again.partition.meta, first.partition.meta)
+    # every tensor of the plan's one list round-trips, dtype and all
+    old, new = first.tensors(), again.tensors()
+    assert list(old) == list(new) == list(port_pc.PartitionPlan.TENSORS)
+    for k in old:
+        assert new[k].dtype == old[k].dtype and torch.equal(new[k], old[k]), k
+    assert (again.slabs["R"], again.slabs["C"]) == \
+        (first.slabs["R"], first.slabs["C"])
+    assert (again.key, again.n_rows, again.n_cols, again.nnz, again.version,
+            again.tuned) == (first.key, first.n_rows, first.n_cols,
+                             first.nnz, first.version, first.tuned)
+    assert again.device_bytes() == first.device_bytes()
+
+
+def test_plan_lists_every_tensor_and_moves_to_meta():
+    plan = port_pc.build_partition_plan(_graphs(12)[1],
+                                        port_pc.PartitionConfig(),
+                                        device="cpu")
+    listed = plan.tensors()
+    held = {id(v) for v in [*vars(plan).values(), *plan.slabs.values()]
+            if isinstance(v, torch.Tensor)}
+    assert held == {id(t) for t in listed.values()}
+    assert set(port_pc.PartitionPlan.TENSOR_FIELDS) <= set(vars(plan))
+    moved = plan.to("meta")
+    assert moved is not plan and moved.device == torch.device("meta")
+    for k, t in moved.tensors().items():
+        assert t.device.type == "meta", k
+        assert (t.shape, t.dtype) == (listed[k].shape, listed[k].dtype), k
+    assert (moved.slabs["R"], moved.slabs["C"]) == \
+        (plan.slabs["R"], plan.slabs["C"])
+    assert moved.key == plan.key and moved.partition is plan.partition
+    assert plan.device == CPU          # the source plan is left as it was
+    # a move to where the tensors lie shares them
+    same = plan.to(CPU)
+    assert all(same.tensors()[k] is t for k, t in listed.items())
+    out = torch.arange(plan.n_rows * 2.0).reshape(plan.n_rows, 2)
+    assert torch.equal(plan.to_original_order(out), out[plan.inv_perm])
 
 
 def test_corrupt_spill_rebuilds(tmp_path):
